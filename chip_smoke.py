@@ -15,8 +15,9 @@ Needs one CUDA device and exits non-zero without one. In order it:
      confidence kernel, counting every kernel launch; and checks a reduced
      model's decode on the card against the same decode on the CPU;
   4. times each kernel, its plain version and, where one exists, one
-     PyTorch call computing the same function, beside the least time the
-     card could take;
+     PyTorch call computing the same function (device time: CUDA graph
+     replays between CUDA events), beside the least time the card could
+     take;
   5. prints the ``kernels`` JSON line and, last, the ``ok`` line.
 Any failed check raises, so the script exits non-zero and prints no
 result line.
@@ -62,23 +63,36 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def cuda_ms(fn, iters: int, warmup: int = 2, repeats: int = 3) -> float:
-    """Time per call: CUDA events around ``iters`` back-to-back calls,
-    divided by ``iters``; the median of ``repeats`` such runs."""
-    for i in range(warmup):
-        fn(i)
+def cuda_ms(fn, iters: int, warmup: int = 2, repeats: int = 5):
+    """Device time per call: ``iters`` back-to-back calls captured in one
+    CUDA graph, replayed between CUDA events, divided by ``iters``.
+    Returns the median, min and max over ``repeats`` replays. A replay
+    issues no Python, so the time is the card's even where the host
+    issues calls more slowly than the card runs them."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(warmup):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for i in range(iters):
+            fn(i)
+    graph.replay()
     torch.cuda.synchronize()
     runs = []
     for _ in range(repeats):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        for i in range(iters):
-            fn(i)
+        graph.replay()
         e1.record()
         e1.synchronize()
         runs.append(e0.elapsed_time(e1) / iters)
-    return float(np.median(runs))
+    del graph
+    torch.cuda.empty_cache()
+    return float(np.median(runs)), min(runs), max(runs)
 
 
 def bound(nbytes: float, ops: float, ops_rate: float):
@@ -120,10 +134,9 @@ def bf16_close(out, want):
 
 def check_kernels(dev):
     from repro_torch.kernels import ref
-    from repro_torch.kernels.block_attention import \
-        cached_block_attention_kernel as k1
     from repro_torch.kernels.confidence import fused_confidence_kernel as k2
     from repro_torch.kernels.fused_step import fused_step_kernel as k3
+    from repro_torch.kernels.ops import cached_block_attention as k1
     from repro_torch.models.layers import unembed
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -151,7 +164,7 @@ def check_kernels(dev):
         x = block_attention_inputs(gen, dev, **shape)
         kw = dict(slot=slot, block_start=shape["fill"], **extra)
         args = (x["q"], x["ck"][0], x["cv"][0], x["bk"], x["bv"], x["pos"])
-        out = k1(*args, **kw)
+        out = k1(*args[:5], kv_pos=args[5], **kw)
         torch.cuda.synchronize()
         ok, err = bf16_close(out, ref.cached_block_attention_ref(*args, **kw))
         log(f"K1 {name}: max_abs_err={err:.3e}")
@@ -437,7 +450,8 @@ def time_kernels(dev):
     from repro_torch.kernels import ref
     from repro_torch.kernels.block_attention import \
         cached_block_attention_kernel as k1
-    from repro_torch.kernels.block_attention import kv_limit_from_pos
+    from repro_torch.kernels.block_attention import (kv_limit_from_pos,
+                                                     row_scalars)
     from repro_torch.kernels.confidence import fused_confidence_kernel as k2
     from repro_torch.kernels.fused_step import fused_step_kernel as k3
 
@@ -452,18 +466,19 @@ def time_kernels(dev):
     x = block_attention_inputs(gen, dev, B=B, bs=bs, H=H, Kh=H, D=D, T=T,
                                fill=fill, copies=copies)
 
-    # the block step computes the valid extent once for all its layers
-    lim = kv_limit_from_pos(x["pos"])
+    # the block step builds the geometry once for all its layers
+    sc = row_scalars(B, dev, slot=fill, block_start=fill,
+                     kv_limit=kv_limit_from_pos(x["pos"]))
 
     def run_k1(i):
         return k1(x["q"], x["ck"][i % copies], x["cv"][i % copies], x["bk"],
-                  x["bv"], x["pos"], slot=fill, block_start=fill,
-                  kv_limit=lim)
+                  x["bv"], x["pos"], sc)
 
     def run_k1_plain(i):
         return ref.cached_block_attention_ref(
             x["q"], x["ck"][i % copies], x["cv"][i % copies], x["bk"],
-            x["bv"], x["pos"], slot=fill, block_start=fill)
+            x["bv"], x["pos"], slot=sc[0], block_start=sc[1],
+            kv_limit=sc[4])
 
     # yardstick: SDPA over the pre-written cache with the same mask
     kfull = [c.clone() for c in x["ck"]]
@@ -524,9 +539,16 @@ def time_kernels(dev):
         bound=bound(M * V * 2 + R * M * 2 + R * 5 + R * 9, 2 * R * M * V,
                     BF16_OPS_PER_S))
     for name, r in res.items():
+        for key in ("ms", "plain_ms", "library_ms"):
+            if r[key] is not None:
+                med, lo, hi = r[key]
+                r[key] = med
+                r[f"{key}_range"] = (lo, hi)
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        log(f"time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}"
-            f" ms, library {lib} ms, bound {r['bound'][0]:.4f} ms "
+        log(f"time {name} (graph replay, median of 5): kernel "
+            f"{r['ms']:.4f} ms [{r['ms_range'][0]:.4f}-"
+            f"{r['ms_range'][1]:.4f}], plain {r['plain_ms']:.4f} ms, "
+            f"library {lib} ms, bound {r['bound'][0]:.4f} ms "
             f"({r['bound'][1]})")
     return res
 

@@ -74,8 +74,8 @@ class DecodeConfig:
     slack: float = 0.1            # epsilon
     max_steps_per_block: int = 0  # 0 -> block_size
     # block-step attention: auto | dense | flash | kernel (the hand-written
-    # CUDA block-attention kernel on the card, the bounded flash path on
-    # the CPU, as the reference does off-TPU)
+    # CUDA block-attention kernel on the card, its plain version on the
+    # CPU)
     attn_impl: str = "auto"
     # denoising-step epilogue: unfused (head product, confidence pass,
     # select) or fused (one kernel, logits never reach memory)

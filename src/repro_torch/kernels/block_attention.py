@@ -5,7 +5,8 @@
 cache (not pre-written) plus its own fresh K/V, with the block step's
 masks. Source: ``csrc/block_attention.cu``. A CPU tensor goes to the plain
 version (``ref.cached_block_attention_ref``); a CUDA tensor launches the
-kernel or raises.
+kernel or raises. The per-row geometry arrives as one [5, B] operand
+(``row_scalars``), as the reference's scalar-prefetch operand does.
 """
 from __future__ import annotations
 
@@ -33,17 +34,19 @@ def kv_limit_from_pos(kv_pos: torch.Tensor) -> torch.Tensor:
     return torch.where(kv_pos >= 0, ids1, 0).amax().to(torch.int32)
 
 
-def _row_scalars(B: int, device, slot, block_start, exclude_start,
-                 exclude_len: int, kv_limit) -> torch.Tensor:
-    """[5, B] int32: slot, block_start, exc0, exc1, kv_limit per row. Host
-    integers travel in one asynchronous copy from pinned memory (a copy
-    from pageable memory would wait for the stream, once per layer); a
-    device ``kv_limit`` stays there."""
+def row_scalars(B: int, device, *, slot, block_start, kv_limit,
+                exclude_start=None, exclude_len: int = 0) -> torch.Tensor:
+    """The kernel's per-row geometry: [5, B] int32 rows slot, block_start,
+    exc0, exc1, kv_limit. Each argument may be an int, [] or per-row [B];
+    a block step builds this once for all its layers. Host integers travel
+    in one asynchronous copy from pinned memory (a copy from pageable
+    memory would wait for the stream); a device ``kv_limit`` stays there."""
+    device = torch.device(device)
     exc0 = 0 if exclude_start is None else exclude_start
     geo = [slot, block_start, exc0]
     if all(isinstance(v, int) for v in geo):
         host = torch.tensor(geo + [exc0 + exclude_len], dtype=torch.int32,
-                            pin_memory=True)
+                            pin_memory=device.type == "cuda")
         head = host.to(device, non_blocking=True)[:, None].expand(4, B)
     else:
         e0 = as_row(exc0, B, device)
@@ -54,26 +57,20 @@ def _row_scalars(B: int, device, slot, block_start, exclude_start,
 
 
 def cached_block_attention_kernel(q, cache_k, cache_v, block_k, block_v,
-                                  kv_pos, *, slot, block_start,
-                                  kv_limit=None, exclude_start=None,
-                                  exclude_len: int = 0,
+                                  kv_pos, scalars, *, exclude_len: int = 0,
                                   window: int = 0) -> torch.Tensor:
     """q [B,bs,H,D]; cache_k/v [B,T,Kh,D]; block_k/v [B,bs,Kh,D];
-    kv_pos [T] int32 -> [B,bs,H,D].
-
-    ``slot`` / ``block_start`` / ``exclude_start`` / ``kv_limit`` may each
-    be an int, [] or per-row [B]; ``kv_limit`` defaults to the extent of
-    the valid slots. A sentinel ``slot + bs > T`` hides the fresh block.
+    kv_pos [T] int32; scalars [5,B] int32 from ``row_scalars`` ->
+    [B,bs,H,D]. A sentinel ``slot + bs > T`` hides the fresh block.
     """
+    B, bs, H, D = q.shape
     if q.device.type == "cpu":
         return cached_block_attention_ref(
-            q, cache_k, cache_v, block_k, block_v, kv_pos, slot=slot,
-            block_start=block_start, kv_limit=kv_limit,
-            exclude_start=exclude_start, exclude_len=exclude_len,
-            window=window)
+            q, cache_k, cache_v, block_k, block_v, kv_pos, slot=scalars[0],
+            block_start=scalars[1], kv_limit=scalars[4],
+            exclude_start=scalars[2], exclude_len=exclude_len, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"no block attention kernel for {q.device}")
-    B, bs, H, D = q.shape
     T, Kh = cache_k.shape[1], cache_k.shape[2]
     for name, t, shape in (("cache_k", cache_k, (B, T, Kh, D)),
                            ("cache_v", cache_v, (B, T, Kh, D)),
@@ -89,21 +86,19 @@ def cached_block_attention_kernel(q, cache_k, cache_v, block_k, block_v,
         raise ValueError(f"unsupported heads/width: H={H} Kh={Kh} D={D}")
     if tuple(kv_pos.shape) != (T,) or kv_pos.dtype != torch.int32:
         raise ValueError("kv_pos must be [T] int32")
-    tensors = (q, cache_k, cache_v, block_k, block_v, kv_pos)
+    if tuple(scalars.shape) != (5, B) or scalars.dtype != torch.int32:
+        raise ValueError("scalars must be [5, B] int32")
+    tensors = (q, cache_k, cache_v, block_k, block_v, kv_pos, scalars)
     if any(t.device != q.device or not t.is_contiguous() for t in tensors):
         raise ValueError("block attention operands must be contiguous and "
                          "on one device")
-    if kv_limit is None:
-        kv_limit = kv_limit_from_pos(kv_pos)
-    sc = _row_scalars(B, q.device, slot, block_start, exclude_start,
-                      exclude_len, kv_limit)
     out = torch.empty_like(q)
     lib = build.load("block_attention", _SIGNATURES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.cached_block_attention(
         q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
         block_k.data_ptr(), block_v.data_ptr(), kv_pos.data_ptr(),
-        sc.data_ptr(), out.data_ptr(), B, bs, H, Kh, D, T,
+        scalars.data_ptr(), out.data_ptr(), B, bs, H, Kh, D, T,
         int(bool(exclude_len)), int(window), f32_scale(D),
         int(q.dtype == torch.bfloat16), stream)
     build.check(err, "cached_block_attention")

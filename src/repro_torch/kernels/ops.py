@@ -1,23 +1,21 @@
-"""Dispatch between the CUDA kernels and the plain paths.
+"""The kernels' entry points, in the reference's call signatures.
 
-On the card the hand-written kernels run. On the CPU the plain versions
-run, chosen as the reference chooses off-TPU, so the port's CPU decode
-reproduces the reference's: the block attention takes the length-aware
-flash path (``attention.cached_block_attend``), the confidence pass and
-the fused step their ``ref`` spellings.
+Each calls its kernel's wrapper, which makes the one device choice: the
+hand-written CUDA kernel for a CUDA tensor, the plain ``ref`` version for
+a CPU tensor.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.block_attention import (
-    cached_block_attention_kernel, kv_limit_from_pos)
+    cached_block_attention_kernel, kv_limit_from_pos, row_scalars)
 from repro_torch.kernels.confidence import fused_confidence_kernel
 from repro_torch.kernels.fused_step import fused_step_kernel
-from repro_torch.models import attention as A
 
-__all__ = ["cached_block_attention", "fused_confidence", "fused_step",
-           "kv_limit_from_pos"]
+__all__ = ["cached_block_attention", "cached_block_attention_kernel",
+           "fused_confidence", "fused_step", "kv_limit_from_pos",
+           "row_scalars"]
 
 
 def fused_confidence(logits: torch.Tensor):
@@ -47,21 +45,6 @@ def fused_step(x: torch.Tensor, w: torch.Tensor, tau: torch.Tensor,
     return conf.reshape(lead), tok.reshape(lead), above.reshape(lead)
 
 
-def _cba_flash(q, cache_k, cache_v, block_k, block_v, kv_pos, slot,
-               block_start, kv_limit, exclude_start, *, exclude_len: int,
-               window: int):
-    """The CPU path: the plain write+mask+attend sequence on the bounded
-    flash path, as the reference runs it off-TPU."""
-    bs = block_k.shape[1]
-    q_pos = int(block_start) + torch.arange(bs, dtype=torch.int32,
-                                            device=q.device)
-    out, _ = A.cached_block_attend(
-        q, cache_k, cache_v, block_k, block_v, kv_pos, slot=slot,
-        q_pos=q_pos, kv_limit=kv_limit, exclude_start=exclude_start,
-        exclude_len=exclude_len, window=window, impl="flash")
-    return out
-
-
 def cached_block_attention(q, cache_k, cache_v, block_k, block_v, *,
                            kv_pos, slot, block_start, kv_limit=None,
                            exclude_start=None, exclude_len: int = 0,
@@ -70,19 +53,18 @@ def cached_block_attention(q, cache_k, cache_v, block_k, block_v, *,
 
     q [B,bs,H,D]; cache_k/v [B,T,Kh,D]; block_k/v [B,bs,Kh,D]; kv_pos [T].
     The result equals writing the block at ``slot`` and attending the
-    whole buffer with the block step's mask. CUDA -> the block attention
-    kernel; CPU -> the bounded flash path.
+    whole buffer with the block step's mask. ``slot`` / ``block_start`` /
+    ``exclude_start`` / ``kv_limit`` may each be an int, [] or per-row [B];
+    ``kv_limit`` defaults to the extent of the valid slots.
     """
     if kv_limit is None:
         kv_limit = kv_limit_from_pos(kv_pos)
     if exclude_start is None:
-        exclude_start, exclude_len = 0, 0
-    if q.is_cuda:
-        return cached_block_attention_kernel(
-            q, cache_k, cache_v, block_k, block_v, kv_pos, slot=slot,
-            block_start=block_start, kv_limit=kv_limit,
-            exclude_start=exclude_start, exclude_len=exclude_len,
-            window=window)
-    return _cba_flash(q, cache_k, cache_v, block_k, block_v, kv_pos, slot,
-                      block_start, kv_limit, exclude_start,
-                      exclude_len=exclude_len, window=window)
+        exclude_len = 0
+    scalars = row_scalars(q.shape[0], q.device, slot=slot,
+                          block_start=block_start, kv_limit=kv_limit,
+                          exclude_start=exclude_start,
+                          exclude_len=exclude_len)
+    return cached_block_attention_kernel(
+        q, cache_k, cache_v, block_k, block_v, kv_pos, scalars,
+        exclude_len=exclude_len, window=window)

@@ -235,9 +235,10 @@ def block_step(params: dict, cfg: ModelConfig, block_tokens: torch.Tensor,
 
     ``attn_impl``: auto / dense / flash are the plain paths (write the
     block into a copy of each layer's cache, mask, attend; "flash" stops
-    at the cache's valid extent); "kernel" is ``ops.cached_block_attention``
-    (the CUDA kernel on the card, which reads the fresh K/V as separate
-    operands so nothing is copied on a step that does not write).
+    at the cache's valid extent); "kernel" is the block attention kernel's
+    wrapper (the CUDA kernel on the card, which reads the fresh K/V as
+    separate operands so nothing is copied on a step that does not write;
+    its plain version on the CPU).
     """
     assert cfg.supports_mdlm, f"{cfg.name} is causal-only"
     x = embed(params["embed"], block_tokens)
@@ -251,6 +252,13 @@ def block_step(params: dict, cfg: ModelConfig, block_tokens: torch.Tensor,
     if attn_impl in ("kernel", "flash"):
         # valid cache extent, shared across layers (one [T] reduction)
         kv_limit = kops.kv_limit_from_pos(kv["pos"])
+    if use_kernel:
+        # the kernel's per-row geometry, shared across layers (one copy)
+        exc_len = exclude_len if exclude_start is not None else 0
+        scalars = kops.row_scalars(
+            B, x.device, slot=slot, block_start=block_start,
+            kv_limit=kv_limit, exclude_start=exclude_start,
+            exclude_len=exc_len)
 
     for l in range(cfg.num_layers):
         lp = layer_params(params["layers"], l)
@@ -258,10 +266,8 @@ def block_step(params: dict, cfg: ModelConfig, block_tokens: torch.Tensor,
         hn = rms_norm(x, lp["ln1"], cfg.norm_eps)
         q, k, v = _qkv(lp, cfg, hn, q_pos)
         if use_kernel:
-            attn = kops.cached_block_attention(
-                q, ck, cv, k, v, kv_pos=kv["pos"], slot=slot,
-                block_start=block_start, kv_limit=kv_limit,
-                exclude_start=exclude_start, exclude_len=exclude_len,
+            attn = kops.cached_block_attention_kernel(
+                q, ck, cv, k, v, kv["pos"], scalars, exclude_len=exc_len,
                 window=window)
             if write:
                 cache_lib.kv_write_slice(ck, cv, k, v, slot)

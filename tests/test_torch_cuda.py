@@ -10,7 +10,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.block_attention import cached_block_attention_kernel
+from repro_torch.kernels.block_attention import (
+    cached_block_attention_kernel, kv_limit_from_pos, row_scalars)
 from repro_torch.kernels.confidence import fused_confidence_kernel
 from repro_torch.kernels.fused_step import fused_step_kernel
 
@@ -47,8 +48,13 @@ def test_block_attention_kernel(dev, B, bs, H, Kh, D, T, fill, slot, exc,
     kw = dict(slot=slot, block_start=fill, window=window)
     if exc:
         kw.update(exclude_start=exc[0], exclude_len=exc[1])
+    exc_start, exc_len = exc if exc else (None, 0)
+    sc = row_scalars(B, dev, slot=slot, block_start=fill,
+                     kv_limit=kv_limit_from_pos(pos), exclude_start=exc_start,
+                     exclude_len=exc_len)
     n0 = cached_block_attention_kernel.launches
-    out = cached_block_attention_kernel(q, ck, cv, bk, bv, pos, **kw)
+    out = cached_block_attention_kernel(q, ck, cv, bk, bv, pos, sc,
+                                        exclude_len=exc_len, window=window)
     torch.cuda.synchronize()
     assert cached_block_attention_kernel.launches == n0 + 1
     want = ref.cached_block_attention_ref(q, ck, cv, bk, bv, pos, **kw)

@@ -62,8 +62,9 @@ def test_kernel_wrappers_refuse_other_devices():
     b = torch.empty((1, 4, 2, 32), **meta)
     pos = torch.empty((8,), dtype=torch.int32, **meta)
     with pytest.raises(ValueError):
-        cached_block_attention_kernel(q, c, c, b, b, pos, slot=0,
-                                      block_start=0)
+        cached_block_attention_kernel(
+            q, c, c, b, b, pos, torch.empty((5, 1), dtype=torch.int32,
+                                            **meta))
     with pytest.raises(ValueError):
         fused_confidence_kernel(torch.empty((2, 10), **meta))
     with pytest.raises(ValueError):

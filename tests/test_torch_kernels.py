@@ -15,7 +15,7 @@ from repro.kernels.fused_step import fused_step_pallas
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.block_attention import (
-    cached_block_attention_kernel, kv_limit_from_pos)
+    cached_block_attention_kernel, kv_limit_from_pos, row_scalars)
 from repro_torch.kernels.confidence import fused_confidence_kernel
 from repro_torch.kernels.fused_step import fused_step_kernel
 
@@ -64,7 +64,12 @@ def test_block_attention_plain_matches_pallas(name):
     jpal = cached_block_attention_pallas(*jargs, kv_tile=32, interpret=True,
                                          **jkw)
     joracle = jref.cached_block_attention_ref(*jargs, **jkw)
-    port = cached_block_attention_kernel(*targs, **tkw)
+    exc_start, exc_len = exc if exc else (None, 0)
+    sc = row_scalars(B, "cpu", slot=slot, block_start=bstart,
+                     kv_limit=T if lim is None else lim,
+                     exclude_start=exc_start, exclude_len=exc_len)
+    port = cached_block_attention_kernel(*targs, sc, exclude_len=exc_len,
+                                         window=win)
     _close(jpal, port)
     _close(joracle, port)
     _close(joracle, tref.cached_block_attention_ref(*targs, **tkw))
@@ -72,8 +77,9 @@ def test_block_attention_plain_matches_pallas(name):
 
 @pytest.mark.parametrize("exclude", [None, (8, 8)])
 def test_block_attention_dispatch_matches_reference(exclude):
-    """``ops.cached_block_attention`` on the CPU takes the same bounded
-    flash path as the reference's off-TPU dispatch."""
+    """``ops.cached_block_attention`` on the CPU (the wrapper's plain
+    version) agrees with the reference's off-TPU dispatch (its bounded
+    flash path)."""
     q, ck, cv, bk, bv, pos = _block_case(7, 2, 8, 4, 2, 16, 40, 16)
     jkw = dict(slot=jnp.asarray(16), block_start=jnp.asarray(16))
     tkw = dict(slot=16, block_start=16)
