@@ -7,13 +7,20 @@ Needs one CUDA device and exits non-zero without one. In order it:
      CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc each, in
      parallel);
   2. holds each kernel against its plain PyTorch version on the card, in
-     bf16 at the main path's shapes and on edge cases;
+     bf16 at the main path's shapes and on edge cases, and the paged block
+     attention kernel (K4) bit for bit against the dense one (K1) on the
+     gathered view;
   3. drives the main path: OSDT decode (Phase 1 on one row, Phase 2 on the
      batch) of LLaDA-8B at full width and depth with random weights from a
      seed, through ``OSDTSession`` with the block attention and fused step
      kernels, then the same batch through the unfused epilogue with the
-     confidence kernel, counting every kernel launch; and checks a reduced
-     model's decode on the card against the same decode on the CPU;
+     confidence kernel, counting every kernel launch; then the paged path:
+     the same Phase-2 decode over a page pool through a permuted page table
+     (K4 + K3), whose tokens, NFE and steps must equal the dense run's, and
+     a 64-token system prefix prefilled once into allocator pages that
+     every row forks, which must decode as private copies of those pages
+     do and stay byte-identical; and checks a reduced model's decode on
+     the card against the same decode on the CPU;
   4. times each kernel, its plain version and, where one exists, one
      PyTorch call computing the same function (device time: CUDA graph
      replays between CUDA events), beside the least time the card could
@@ -41,8 +48,9 @@ BF16_OPS_PER_S = 989e12
 F32_OPS_PER_S = 67e12
 SEED = 0
 
-# the main path's shapes
+# the main path's shapes; the paged path's page size and shared prefix
 BATCH, PROMPT, NEW, BLOCK = 8, 128, 128, 32
+PAGE, SHARED = 16, 64
 
 
 def log(*a):
@@ -119,6 +127,34 @@ def block_attention_inputs(gen, dev, *, B, bs, H, Kh, D, T, fill, copies=1):
             torch.int32))
 
 
+def paged_inputs(gen, dev, *, B, bs, H, Kh, D, T, fill, ps, spare=4,
+                 copies=1):
+    """K4's operands: a bf16 pool with ``spare`` pages more than the rows
+    map, and a random permutation of physical pages as the page table."""
+    bf = torch.bfloat16
+
+    def r(*s):
+        return torch.randn(s, generator=gen, device=dev).to(bf)
+
+    n_log = -(-T // ps)
+    P = B * n_log + spare
+    perm = torch.randperm(P, generator=gen, device=dev)
+    ar = torch.arange(T, device=dev)
+    return dict(
+        q=r(B, bs, H, D), pk=[r(P, ps, Kh, D) for _ in range(copies)],
+        pv=[r(P, ps, Kh, D) for _ in range(copies)], bk=r(B, bs, Kh, D),
+        bv=r(B, bs, Kh, D),
+        pos=torch.where(ar < fill, ar, -1).to(torch.int32),
+        pt=perm[:B * n_log].reshape(B, n_log).to(torch.int32).contiguous())
+
+
+def gather_view(pool, pt, T, ps):
+    """The dense logical view [B, T, Kh, D] of a pool through a table
+    (every page mapped)."""
+    slots = torch.arange(T, device=pt.device)
+    return pool[pt[:, slots // ps].long(), slots % ps].contiguous()
+
+
 def bf16_close(out, want):
     """Elementwise |out - want| <= 2^-7 |want| + 1e-4: the two sum in
     another order in f32 and each rounds once to bf16, so they may differ
@@ -136,6 +172,7 @@ def check_kernels(dev):
     from repro_torch.kernels import ref
     from repro_torch.kernels.confidence import fused_confidence_kernel as k2
     from repro_torch.kernels.fused_step import fused_step_kernel as k3
+    from repro_torch.kernels import ops as kops
     from repro_torch.kernels.ops import cached_block_attention as k1
     from repro_torch.models.layers import unembed
 
@@ -171,6 +208,64 @@ def check_kernels(dev):
         check(ok, f"K1 {name} within 2^-7 relative + 1e-4")
         if name == "main":
             errs["block_attention"] = err
+
+    # K4: the main shape over a random permutation of physical pages, with
+    # one unmapped page inside the valid extent and one retired row
+    # (kv_limit 0), then K1's edge cases and a page size that divides
+    # neither T nor 8
+    from repro_torch.kernels.block_attention import \
+        cached_block_attention_kernel, paged_block_attention_kernel, \
+        row_scalars
+    fill = PROMPT + 2 * BLOCK
+    k4_cases = [
+        ("main", dict(B=BATCH, bs=BLOCK, H=H, Kh=H, D=D, T=T, fill=fill,
+                      ps=PAGE), fill, {}, True),
+        ("gqa4_ragged_T", dict(B=2, bs=BLOCK, H=8, Kh=2, D=D, T=100,
+                               fill=50, ps=PAGE), 50, {}, True),
+        ("dual_exclude", dict(B=2, bs=BLOCK, H=4, Kh=4, D=D, T=T + BLOCK,
+                              fill=T, ps=PAGE), T,
+         dict(exclude_start=PROMPT + BLOCK, exclude_len=BLOCK), False),
+        ("window", dict(B=1, bs=8, H=4, Kh=4, D=64, T=96, fill=60,
+                        ps=PAGE), 60, dict(window=20), False),
+        ("page_size_5", dict(B=3, bs=8, H=4, Kh=4, D=64, T=93, fill=61,
+                             ps=5), 61, {}, True),
+    ]
+    for name, shape, slot, extra, hole in k4_cases:
+        x = paged_inputs(gen, dev, **shape)
+        pt = x["pt"].clone()
+        if hole:
+            pt[-1, 1] = -1
+        lim = torch.full((shape["B"],), shape["fill"], dtype=torch.int32,
+                         device=dev)
+        if shape["B"] > 2:
+            lim[0] = 0
+        kw = dict(slot=slot, block_start=shape["fill"], kv_limit=lim,
+                  **extra)
+        args = (x["q"], x["pk"][0], x["pv"][0], x["bk"], x["bv"])
+        out = kops.paged_block_attention(*args, kv_pos=x["pos"],
+                                         page_table=pt, page_size=shape["ps"],
+                                         **kw)
+        torch.cuda.synchronize()
+        ok, err = bf16_close(out, ref.paged_block_attention_ref(
+            *args, x["pos"], pt, **kw))
+        log(f"K4 {name}: max_abs_err={err:.3e}")
+        check(ok, f"K4 {name} within 2^-7 relative + 1e-4")
+        if name == "main":
+            errs["paged_block_attention"] = err
+            # one body: over a fully mapped table K4 is K1 on the view
+            sc = row_scalars(BATCH, dev, slot=slot, block_start=fill,
+                             kv_limit=lim)
+            paged = paged_block_attention_kernel(*args, x["pos"], x["pt"],
+                                                 sc)
+            dense = cached_block_attention_kernel(
+                x["q"], gather_view(x["pk"][0], x["pt"], T, PAGE),
+                gather_view(x["pv"][0], x["pt"], T, PAGE), x["bk"], x["bv"],
+                x["pos"], sc)
+            torch.cuda.synchronize()
+            check(torch.equal(paged, dense),
+                  "K4 over a permuted table equals K1 on the gathered view "
+                  "bit for bit")
+            log("K4 main vs K1 on the gathered view: bitwise equal")
 
     # K2: f32 logits; max and argmax involve no arithmetic, so tokens are
     # equal everywhere; conf differs by the f32 sum order (rel 1e-4)
@@ -356,7 +451,9 @@ def main_path(dev, kernels):
     check(unfused_counts["block_attention"] > 0
           and unfused_counts["confidence"] > 0,
           "the unfused run launched K1 and K2")
-    check(all(c > 0 for c in counts.values()), "every kernel launched")
+    check(all(c > 0 for n, c in counts.items()
+              if n != "paged_block_attention"),
+          "every kernel of the dense path launched")
 
     table = session.table
     log(f"calibrated OSDT table (block x step 0): "
@@ -385,9 +482,126 @@ def main_path(dev, kernels):
     log(f"fused vs unfused Phase-2 token match rate: {match:.4f}")
     log(f"peak device memory: {torch.cuda.max_memory_allocated() / 1e9:.2f}"
         f" GB")
+    paged_counts = paged_path(dev, kernels, params, cfg, dcfg, table,
+                              prompts, out["phase2_osdt_fused"][0])
+    # last: the profiler may leave the host slower for what follows it
     profile_phase2(session, prompts)
     del params
     torch.cuda.empty_cache()
+    return {n: counts[n] + paged_counts[n] for n in counts}
+
+
+def paged_path(dev, kernels, params, cfg, dcfg, table, prompts, dense):
+    """The paged layout's path, fused (K4 + K3), with the calibrated
+    table: (a) the Phase-2 batch over a permuted page table must give the
+    dense run's tokens, NFE and steps exactly (K4 shares K1's body); (b) a
+    64-token system prefix prefilled once into allocator pages, forked
+    into every row and decoded with ``shared_prefix_len``, must give the
+    tokens of the same decode over private copies of those pages, and its
+    pages must come back byte-identical. Returns the launch counts."""
+    from repro_torch.core.decoder import make_generate_fn
+    from repro_torch.data import tokenizer as tok
+    from repro_torch.models import cache as cache_lib
+    from repro_torch.models import model as M
+
+    pdcfg = dataclasses.replace(dcfg, cache_layout="paged", page_size=PAGE)
+    max_len = PROMPT + NEW
+    n_log = pdcfg.pages_per_seq(max_len)
+    n_shared = SHARED // PAGE
+    n_priv = n_log - n_shared
+    # (a) maps B * n_log pages; (b) the shared pages, B private tails and
+    # B private copies of the shared pages
+    num_pages = BATCH * n_log + n_shared
+    pool = cache_lib.init_paged_kv_cache(
+        cfg.num_layers, BATCH, max_len, cfg.num_kv_heads,
+        cfg.resolved_head_dim, torch.bfloat16, page_size=PAGE,
+        num_pages=num_pages, device=dev)
+    kp, vp = pool["kp"], pool["vp"]
+    log(f"page pool: {num_pages} pages x {PAGE} slots, "
+        f"{2 * kp.numel() * kp.element_size() / 1e9:.2f} GB bf16")
+    alloc = cache_lib.PageAllocator(num_pages)
+    rng = np.random.default_rng(SEED + 2)
+
+    def table_of(rows):
+        return torch.tensor(rows, dtype=torch.int32, device=dev)
+
+    def timed(gen, rows, pt):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = gen(params, rows, table, tok.MASK_ID, None, None, kp, vp, pt)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    def report(phase, res, secs):
+        toks = res.tokens
+        check(tuple(toks.shape) == (BATCH, NEW)
+              and not bool((toks == tok.MASK_ID).any())
+              and bool(torch.isfinite(res.conf).all()), f"{phase} output")
+        log(f"{phase}: rows={BATCH} NFE={res.nfe} "
+            f"steps_per_block={res.steps_per_block.tolist()} "
+            f"wall={secs:.3f}s tokens/s={BATCH * NEW / secs:.1f} "
+            f"ms/forward={secs / res.nfe * 1e3:.2f}")
+
+    reset_counts(kernels)
+    # (a) Sp = 0 over a random permutation of the allocator's pages
+    pages = alloc.alloc(BATCH * n_log)
+    pt = table_of(rng.permutation(pages).reshape(BATCH, n_log))
+    gen = make_generate_fn(cfg, pdcfg, attn_impl="kernel")
+    res, secs = timed(gen, prompts, pt)
+    report("paged_a_phase2_fused", res, secs)
+    same = (torch.equal(res.tokens, dense.tokens) and res.nfe == dense.nfe
+            and torch.equal(res.steps_per_block, dense.steps_per_block))
+    log(f"paged (a) vs dense Phase 2: token match="
+        f"{float((res.tokens == dense.tokens).float().mean()):.4f} "
+        f"NFE {res.nfe} vs {dense.nfe}")
+    check(same, "paged Phase 2 equals the dense run in tokens, NFE, steps")
+    alloc.free(pages)
+
+    # (b) a shared system prefix, prefilled once into allocator pages
+    shared = alloc.alloc(n_shared)
+    system = rng.integers(0, 256, (1, SHARED))
+    spt = [shared + [-1] * n_priv]
+    cache = {"attn": {"kp": kp, "vp": vp, "pt": table_of(spt),
+                      "pos": torch.full((max_len,), -1, dtype=torch.int32,
+                                        device=dev), "length": 0}}
+    M.prefill(params, cfg, torch.as_tensor(system, device=dev),
+              max_len=max_len, mode="full", cache=cache, page_size=PAGE)
+    sk, sv = kp[:, shared].clone(), vp[:, shared].clone()
+    forks = [alloc.fork(shared, n_priv) for _ in range(BATCH)]
+    rows = np.concatenate([np.repeat(system, BATCH, 0),
+                           prompts[:, SHARED:]], 1)
+    gen_s = make_generate_fn(cfg, pdcfg, attn_impl="kernel",
+                             shared_prefix_len=SHARED)
+    res_s, secs = timed(gen_s, rows, table_of([a + b for a, b in forks]))
+    report("paged_b_shared_prefix", res_s, secs)
+    check(torch.equal(kp[:, shared], sk) and torch.equal(vp[:, shared], sv),
+          "the shared pages are byte-identical after the decode")
+    copies = [alloc.alloc(n_shared) for _ in range(BATCH)]
+    for c in copies:
+        kp[:, c] = sk
+        vp[:, c] = sv
+    res_p, secs = timed(gen_s, rows, table_of(
+        [c + priv for c, (_, priv) in zip(copies, forks)]))
+    report("paged_b_private_copies", res_p, secs)
+    counts = read_counts(kernels)
+    check(torch.equal(res_s.tokens, res_p.tokens) and res_s.nfe == res_p.nfe
+          and torch.equal(res_s.steps_per_block, res_p.steps_per_block),
+          "shared pages decode as private copies of them do")
+    log(f"shared prefix vs private copies: tokens equal, NFE {res_s.nfe}; "
+        f"refcount of a shared page with {BATCH} forks: "
+        f"{alloc.refcount(shared[0])}")
+    for (sh, priv), c in zip(forks, copies):
+        alloc.free(sh)
+        alloc.free(priv)
+        alloc.free(c)
+    check(alloc.in_use == n_shared, "after free only the shared pages stay")
+    alloc.free(shared)
+    check(alloc.in_use == 0, "the pool drains")
+    log(f"launches, paged path: {counts}")
+    check(counts["paged_block_attention"] > 0 and counts["fused_step"] > 0
+          and counts["block_attention"] == 0,
+          "the paged path launched K4 and K3, and not K1")
+    del pool, kp, vp, cache
     return counts
 
 
@@ -514,6 +728,54 @@ def time_kernels(dev):
         library_ms=cuda_ms(run_k1_lib, 50),
         bound=bound(k1_bytes, k1_ops, BF16_OPS_PER_S))
 
+    # K4 at the paged path's block step: K1's shapes over a pool of 132
+    # pages of 16 slots through a random permutation of pages, every row
+    # live and every page of the 192 valid slots mapped, as on the path.
+    # Four layers' pools rotate (4 x 34.6 MB > L2).
+    from repro_torch.kernels.block_attention import \
+        paged_block_attention_kernel as k4
+    xp = paged_inputs(gen, dev, B=B, bs=bs, H=H, Kh=H, D=D, T=T, fill=fill,
+                      ps=PAGE, copies=copies)
+
+    def run_k4(i):
+        return k4(xp["q"], xp["pk"][i % copies], xp["pv"][i % copies],
+                  xp["bk"], xp["bv"], xp["pos"], xp["pt"], sc)
+
+    def run_k4_plain(i):
+        return ref.paged_block_attention_ref(
+            xp["q"], xp["pk"][i % copies], xp["pv"][i % copies], xp["bk"],
+            xp["bv"], xp["pos"], xp["pt"], slot=sc[0], block_start=sc[1],
+            kv_limit=sc[4])
+
+    # yardstick: SDPA over the gathered dense view with the block written
+    # in (the gather is done here, outside the timed calls)
+    kview, vview = [], []
+    for c in range(copies):
+        kv_ = gather_view(xp["pk"][c], xp["pt"], T, PAGE)
+        vv_ = gather_view(xp["pv"][c], xp["pt"], T, PAGE)
+        kv_[:, fill:fill + bs] = xp["bk"]
+        vv_[:, fill:fill + bs] = xp["bv"]
+        kview.append(kv_.transpose(1, 2).contiguous())
+        vview.append(vv_.transpose(1, 2).contiguous())
+    qpt = xp["q"].transpose(1, 2).contiguous()
+
+    def run_k4_lib(i):
+        return sdpa(qpt, kview[i % copies], vview[i % copies],
+                    attn_mask=valid)
+
+    with torch.no_grad():
+        ok, _ = bf16_close(run_k4(0), run_k4_plain(0))
+        check(ok, "K4 timing inputs agree with the plain version")
+        check(bool((run_k4_lib(0).transpose(1, 2).float()
+                    - run_k4(0).float()).abs().max() < 0.05),
+              "the SDPA yardstick computes the same attention")
+    n_log = -(-T // PAGE)
+    res["paged_block_attention"] = dict(
+        ms=cuda_ms(run_k4, 50), plain_ms=cuda_ms(run_k4_plain, 10),
+        library_ms=cuda_ms(run_k4_lib, 50),
+        bound=bound(k1_bytes + 4 * B * n_log, k1_ops, BF16_OPS_PER_S))
+    del xp, kview, vview
+
     # K2 on the unfused path's logits: [B*bs, V] f32, 129.5 MB (> L2)
     R, V, M = B * bs, 126464, 4096
     logits = torch.randn((R, V), generator=gen, device=dev) * 3
@@ -560,6 +822,9 @@ KERNEL_META = {
                    "src/repro/kernels/confidence.py:82"),
     "fused_step": ("src/repro_torch/kernels/csrc/fused_step.cu",
                    "src/repro/kernels/fused_step.py:144"),
+    "paged_block_attention": (
+        "src/repro_torch/kernels/csrc/block_attention.cu",
+        "src/repro/kernels/block_attention.py:361"),
 }
 
 
@@ -570,8 +835,8 @@ def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(here, "src"))
     from repro_torch.kernels import build
-    from repro_torch.kernels.block_attention import \
-        cached_block_attention_kernel
+    from repro_torch.kernels.block_attention import (
+        cached_block_attention_kernel, paged_block_attention_kernel)
     from repro_torch.kernels.confidence import fused_confidence_kernel
     from repro_torch.kernels.fused_step import fused_step_kernel
 
@@ -593,13 +858,15 @@ def main() -> int:
 
     kernels = {"block_attention": cached_block_attention_kernel,
                "confidence": fused_confidence_kernel,
-               "fused_step": fused_step_kernel}
+               "fused_step": fused_step_kernel,
+               "paged_block_attention": paged_block_attention_kernel}
     t0 = time.perf_counter()
     errs = check_kernels(dev)
     log(f"kernel checks passed ({time.perf_counter() - t0:.1f}s)")
     t0 = time.perf_counter()
     counts = main_path(dev, kernels)
     log(f"main path done ({time.perf_counter() - t0:.1f}s)")
+    check(all(c > 0 for c in counts.values()), "every kernel launched")
     reduced_reference_check(dev)
     timing = time_kernels(dev)
 

@@ -1,4 +1,4 @@
-"""Configuration dataclasses (the fields the dense decode path reads).
+"""Configuration dataclasses (the fields the decode paths read).
 
 A copy of the reference's ``ModelConfig`` / ``DecodeConfig`` cut down to
 the dense family: the same field names, defaults and ``reduced`` rule, so a
@@ -77,6 +77,11 @@ class DecodeConfig:
     # CUDA block-attention kernel on the card, its plain version on the
     # CPU)
     attn_impl: str = "auto"
+    # KV-cache layout: dense (every batch row owns a [T, Kh, D] buffer
+    # slice) or paged (rows map logical pages onto a shared page pool
+    # through per-row int32 page tables; -1 = unmapped)
+    cache_layout: str = "dense"
+    page_size: int = 16           # cache slots per page
     # denoising-step epilogue: unfused (head product, confidence pass,
     # select) or fused (one kernel, logits never reach memory)
     step_fusion: str = "unfused"
@@ -89,3 +94,7 @@ class DecodeConfig:
     @property
     def steps_cap(self) -> int:
         return self.max_steps_per_block or self.block_size
+
+    def pages_per_seq(self, max_len: int) -> int:
+        """Logical pages covering a ``max_len``-slot cache row."""
+        return -(-max_len // self.page_size)

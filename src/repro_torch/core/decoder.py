@@ -83,11 +83,23 @@ def _unmask_choice(conf, toks, block, mask_id: int, tau, quota: int,
 def make_generate_fn(cfg: ModelConfig, dcfg: DecodeConfig, *,
                      use_cache: bool = True, quota: int = 0,
                      use_kernel: bool = False, cache_mode: str = "",
-                     attn_impl: str = "", step_fusion: str = ""):
+                     attn_impl: str = "", step_fusion: str = "",
+                     cache_layout: str = "", shared_prefix_len: int = 0):
     """Build the generate function.
 
     fn(params, prompt [B, P] int, table, mask_id, live [B] bool = None,
        eos_id = None) -> GenerateResult
+
+    With the paged cache layout three trailing arguments are added:
+    fn(..., pool_k, pool_v, page_table), where pool_k/v
+    [L, num_pages, page_size, Kh, D] is the caller's page pool and
+    page_table [B, n_log] maps each row's logical pages onto it (-1 =
+    unmapped). Unlike the reference, which returns nothing of its updated
+    pool copy, the port writes the pool IN PLACE (as its dense cache is
+    written): the pages the rows' tables map at slots ``>= Sp`` hold this
+    call's K/V afterwards. Pages below ``shared_prefix_len`` are only
+    read, so shared-prefix pages keep their contents and a second call
+    over the same pool and tables gives the same result.
 
     ``table`` is the threshold table, per slot [B, nb, steps_cap] or
     shared [nb, steps_cap] (numpy or tensor). ``live`` marks rows that
@@ -98,25 +110,76 @@ def make_generate_fn(cfg: ModelConfig, dcfg: DecodeConfig, *,
     attention; ``step_fusion`` (default ``dcfg.step_fusion``) picks the
     unfused epilogue (head product, confidence pass, select; the
     confidence pass is the CUDA kernel with ``use_kernel``) or the fused
-    kernel. Everything runs on the device that holds ``params``.
+    kernel. ``cache_layout`` (default ``dcfg.cache_layout``) is "dense" or
+    "paged"; ``shared_prefix_len`` (paged only, a multiple of
+    ``dcfg.page_size``) marks the first ``Sp`` prompt positions as already
+    prefilled into the mapped pages: prefill then encodes only
+    ``prompt[:, Sp:]`` against them. Everything runs on the device that
+    holds ``params``.
     """
     cache_mode = cache_mode or ("prefix" if use_cache else "none")
     attn_impl = attn_impl or dcfg.attn_impl
     step_fusion = step_fusion or dcfg.step_fusion
+    cache_layout = cache_layout or dcfg.cache_layout
     if cache_mode not in ("prefix", "dual", "none") or attn_impl not in (
             "auto", "dense", "flash", "kernel") or step_fusion not in (
-            "unfused", "fused"):
+            "unfused", "fused") or cache_layout not in ("dense", "paged"):
         raise ValueError(f"unknown decode variant {cache_mode!r}, "
-                         f"{attn_impl!r}, {step_fusion!r}")
+                         f"{attn_impl!r}, {step_fusion!r}, "
+                         f"{cache_layout!r}")
     assert cfg.supports_mdlm, f"{cfg.name}: diffusion decoding inapplicable"
     use_cache = cache_mode != "none"
     dual = cache_mode == "dual"
     fused = step_fusion == "fused"
+    paged = cache_layout == "paged" and use_cache
+    ps, Sp = dcfg.page_size, shared_prefix_len
+    if Sp and (not paged or Sp % ps):
+        raise ValueError(f"shared_prefix_len={Sp} needs the paged layout "
+                         f"and a multiple of page_size={ps}")
     N, bs = dcfg.max_new_tokens, dcfg.block_size
     nb, sc = dcfg.num_blocks, dcfg.steps_cap
 
-    def gen(params, prompt, table, mask_id, live=None, eos_id=None
-            ) -> GenerateResult:
+    def init_cache(params, prompt, pool_k, pool_v, page_table):
+        """Prefill the prompt into a dense cache, or into the caller's
+        page pool (from ``Sp`` on, when the shared pages hold ``[0,
+        Sp)``)."""
+        B, P = prompt.shape
+        # the dual cache reserves a scratch slot region for the in-flight
+        # block beyond [prompt | response]
+        max_len = P + N + (bs if dual else 0)
+        if not paged:
+            return M.prefill(params, cfg, prompt, max_len=max_len,
+                             mode="full")[1]
+        if pool_k is None or pool_v is None or page_table is None:
+            raise ValueError("paged layout: pass pool_k, pool_v, page_table")
+        n_log = dcfg.pages_per_seq(max_len)
+        if tuple(page_table.shape) != (B, n_log):
+            raise ValueError(f"page_table is {tuple(page_table.shape)}, "
+                             f"want {(B, n_log)}")
+        if Sp >= P:
+            raise ValueError(f"shared_prefix_len {Sp} must be below the "
+                             f"prompt length {P}")
+        dev = prompt.device
+        kv = {"kp": pool_k, "vp": pool_v,
+              "pt": torch.as_tensor(page_table).to(dev, torch.int32)
+              .contiguous(),
+              "pos": torch.full((max_len,), -1, dtype=torch.int32,
+                                device=dev),
+              "length": 0}
+        if not Sp:
+            return M.prefill(params, cfg, prompt, max_len=max_len,
+                             mode="full", cache={"attn": kv},
+                             page_size=ps)[1]
+        # the shared pages already hold [0, Sp): mark them valid and
+        # encode only the per-row remainder against them
+        kv["pos"][:Sp] = torch.arange(Sp, dtype=torch.int32, device=dev)
+        kv["length"] = Sp
+        return M.block_step(params, cfg, prompt[:, Sp:], Sp, {"attn": kv},
+                            write=True, attn_impl=attn_impl,
+                            page_size=ps)[1]
+
+    def gen(params, prompt, table, mask_id, live=None, eos_id=None,
+            pool_k=None, pool_v=None, page_table=None) -> GenerateResult:
         dev = params["embed"].device
         prompt = torch.as_tensor(prompt, dtype=torch.int32).to(dev)
         table = torch.as_tensor(table, dtype=torch.float32).to(dev)
@@ -140,12 +203,12 @@ def make_generate_fn(cfg: ModelConfig, dcfg: DecodeConfig, *,
 
         cache = None
         if use_cache:
-            # the dual cache reserves a scratch slot region for the
-            # in-flight block beyond [prompt | response]
-            max_len = P + N + (bs if dual else 0)
-            _, cache = M.prefill(params, cfg, prompt, max_len=max_len,
-                                 mode="full")
+            cache = init_cache(params, prompt, pool_k, pool_v, page_table)
             nfe += 1
+
+        def paged_kw():
+            # every paged block step reads the rows' current liveness
+            return dict(page_size=ps, row_live=live) if paged else {}
 
         for b in range(nb):
             start = b * bs
@@ -157,7 +220,8 @@ def make_generate_fn(cfg: ModelConfig, dcfg: DecodeConfig, *,
                 # P without advancing the length
                 _, cache = M.block_step(params, cfg, resp, P, cache,
                                         write=True, advance=False,
-                                        write_slot=P, attn_impl=attn_impl)
+                                        write_slot=P, attn_impl=attn_impl,
+                                        **paged_kw())
                 nfe += 1
 
             def model_out(block, head=True):
@@ -165,12 +229,13 @@ def make_generate_fn(cfg: ModelConfig, dcfg: DecodeConfig, *,
                     out, _ = M.block_step(
                         params, cfg, block, block_start, cache,
                         write_slot=P + N, exclude_start=start + P,
-                        exclude_len=bs, attn_impl=attn_impl, head=head)
+                        exclude_len=bs, attn_impl=attn_impl, head=head,
+                        **paged_kw())
                     return out
                 if use_cache:
                     out, _ = M.block_step(params, cfg, block, block_start,
                                           cache, attn_impl=attn_impl,
-                                          head=head)
+                                          head=head, **paged_kw())
                     return out
                 x = torch.cat([prompt, resp], dim=1)
                 out = M.forward(params, cfg, x, mode="full", head=head)
@@ -227,7 +292,7 @@ def make_generate_fn(cfg: ModelConfig, dcfg: DecodeConfig, *,
                 # commit the finished block's K/V (Fast-dLLM prefix cache)
                 _, cache = M.block_step(params, cfg, block, block_start,
                                         cache, write=True,
-                                        attn_impl=attn_impl)
+                                        attn_impl=attn_impl, **paged_kw())
                 nfe += 1
 
         return GenerateResult(resp, nfe, conf_rec, val_rec, steps_used,

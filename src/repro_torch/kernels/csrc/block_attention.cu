@@ -4,9 +4,12 @@
 //   q [B, bs, H, D], cache k/v [B, T, Kh, D], block k/v [B, bs, Kh, D],
 //   kv_pos [T] i32, scalars [5, B] i32 (slot, block_start, exc0, exc1,
 //   kv_limit per row) -> out [B, bs, H, D]
+// K4: the same over a paged cache: pool k/v [P, ps, Kh, D] and
+//   page_table [B, n_log] i32 (-1 = unmapped) take the dense cache's place.
 //
 // Replaces: repro/kernels/block_attention.py::cached_block_attention_pallas
-// (TPU; body _attn_kernel, geometry _row_scalars).
+// (K1) and ::paged_block_attention_pallas (K4) (TPU; one body,
+// _attn_kernel, with paged=True for K4; geometry _row_scalars).
 // Bound on the H100: bytes. A block step reads each live cache row once
 // (at the main path <= 33.5 MB of K/V per layer) and does 4*D operations
 // per (query, key) pair, far below the 295 operations a byte where the
@@ -21,6 +24,13 @@
 // and output 0) and the P.V product need only warp shuffles. The fresh
 // block enters as extra tiles after the cache; a sentinel slot + bs > T
 // hides it. No tensor cores yet: that is for a later version.
+// The two layouts share the body through the template parameter kPaged,
+// which changes only where slot `id` of row b is read: dense at
+// ((b*T + id)*Kh + kh)*D; paged through pp = page_table[b*n_log + id/ps]
+// at ((pp*ps + id%ps)*Kh + kh)*D, an unmapped slot (pp < 0) loading zero
+// and counting as invalid. A tile is not one page: a page may be any
+// size, and n_log*ps >= T. With every page mapped, K4 gives K1's result
+// on the gathered view bit for bit.
 #include <cuda_runtime.h>
 
 #include "softmax_acc.cuh"
@@ -44,14 +54,28 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <typename T>
+// Offset of cache slot `id` of row b, kv head kh, or -1 when its page is
+// unmapped. Dense: ck/cv are [B, T, Kh, D]; paged: pools [P, ps, Kh, D].
+template <bool kPaged>
+__device__ __forceinline__ long long slot_offset(
+    const int* __restrict__ pt, int b, int id, int kh, int Kh, int D,
+    int T_, int n_log, int ps) {
+  if (kPaged) {
+    const int pp = pt[b * n_log + id / ps];
+    if (pp < 0) return -1;
+    return (((long long)pp * ps + id % ps) * Kh + kh) * D;
+  }
+  return (((long long)b * T_ + id) * Kh + kh) * D;
+}
+
+template <typename T, bool kPaged>
 __global__ void __launch_bounds__(kThreads)
 block_attn(const T* __restrict__ q, const T* __restrict__ ck,
            const T* __restrict__ cv, const T* __restrict__ bk,
            const T* __restrict__ bv, const int* __restrict__ kv_pos,
-           const int* __restrict__ sc, T* __restrict__ out, int B, int bs,
-           int H, int Kh, int D, int T_, int exclude, int window,
-           float scale) {
+           const int* __restrict__ pt, const int* __restrict__ sc,
+           T* __restrict__ out, int B, int bs, int H, int Kh, int D, int T_,
+           int n_log, int ps, int exclude, int window, float scale) {
   extern __shared__ float smem[];
   float* qs = smem;                    // [kRows][D]
   float* ks = qs + kRows * D;          // [kKT][D + 1]
@@ -122,9 +146,12 @@ block_attn(const T* __restrict__ q, const T* __restrict__ ck,
       const int c = e / D, d = e % D, id = t0 + c;
       float kx = 0.f, vx = 0.f;
       if (id < T_) {
-        const size_t o = (((size_t)b * T_ + id) * Kh + kh) * D + d;
-        kx = to_f32(ck[o]);
-        vx = to_f32(cv[o]);
+        const long long o = slot_offset<kPaged>(pt, b, id, kh, Kh, D, T_,
+                                                n_log, ps);
+        if (o >= 0) {
+          kx = to_f32(ck[o + d]);
+          vx = to_f32(cv[o + d]);
+        }
       }
       ks[c * (D + 1) + d] = kx;
       vs[c * D + d] = vx;
@@ -134,6 +161,7 @@ block_attn(const T* __restrict__ q, const T* __restrict__ ck,
     bool valid = id < T_ && id < kvlim;
     const int pos = valid ? kv_pos[id] : -1;
     valid = valid && pos >= 0;
+    if (kPaged) valid = valid && pt[b * n_log + id / ps] >= 0;
     // the slots the block virtually overwrites are stale: the block
     // operand serves them instead
     valid = valid && !(id >= slot && id < slot + bs);
@@ -178,24 +206,26 @@ block_attn(const T* __restrict__ q, const T* __restrict__ ck,
   }
 }
 
-template <typename T>
+template <typename T, bool kPaged>
 int launch(const void* q, const void* ck, const void* cv, const void* bk,
-           const void* bv, const void* kv_pos, const void* sc, void* out,
-           int B, int bs, int H, int Kh, int D, int T_, int exclude,
-           int window, float scale, cudaStream_t st) {
+           const void* bv, const void* kv_pos, const void* pt,
+           const void* sc, void* out, int B, int bs, int H, int Kh, int D,
+           int T_, int n_log, int ps, int exclude, int window, float scale,
+           cudaStream_t st) {
   const int R = (H / Kh) * bs;
   const size_t smem = sizeof(float) * (kRows * D + kKT * (D + 1) + kKT * D);
   cudaError_t err = cudaFuncSetAttribute(
-      block_attn<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      block_attn<T, kPaged>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((R + kRows - 1) / kRows, Kh, B);
-  block_attn<T><<<grid, kThreads, smem, st>>>(
+  block_attn<T, kPaged><<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(ck),
       static_cast<const T*>(cv), static_cast<const T*>(bk),
       static_cast<const T*>(bv), static_cast<const int*>(kv_pos),
-      static_cast<const int*>(sc), static_cast<T*>(out), B, bs, H, Kh, D,
-      T_, exclude, window, scale);
+      static_cast<const int*>(pt), static_cast<const int*>(sc),
+      static_cast<T*>(out), B, bs, H, Kh, D, T_, n_log, ps, exclude, window,
+      scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -210,8 +240,30 @@ extern "C" int cached_block_attention(const void* q, const void* ck,
                                       int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch<__nv_bfloat16>(q, ck, cv, bk, bv, kv_pos, scalars, out, B,
-                                 bs, H, Kh, D, T, exclude, window, scale, st);
-  return launch<float>(q, ck, cv, bk, bv, kv_pos, scalars, out, B, bs, H,
-                       Kh, D, T, exclude, window, scale, st);
+    return launch<__nv_bfloat16, false>(q, ck, cv, bk, bv, kv_pos, nullptr,
+                                        scalars, out, B, bs, H, Kh, D, T, 1,
+                                        1, exclude, window, scale, st);
+  return launch<float, false>(q, ck, cv, bk, bv, kv_pos, nullptr, scalars,
+                              out, B, bs, H, Kh, D, T, 1, 1, exclude, window,
+                              scale, st);
+}
+
+extern "C" int paged_block_attention(const void* q, const void* pool_k,
+                                     const void* pool_v, const void* bk,
+                                     const void* bv, const void* kv_pos,
+                                     const void* page_table,
+                                     const void* scalars, void* out, int B,
+                                     int bs, int H, int Kh, int D, int T,
+                                     int n_log, int ps, int exclude,
+                                     int window, float scale, int is_bf16,
+                                     void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch<__nv_bfloat16, true>(q, pool_k, pool_v, bk, bv, kv_pos,
+                                       page_table, scalars, out, B, bs, H,
+                                       Kh, D, T, n_log, ps, exclude, window,
+                                       scale, st);
+  return launch<float, true>(q, pool_k, pool_v, bk, bv, kv_pos, page_table,
+                             scalars, out, B, bs, H, Kh, D, T, n_log, ps,
+                             exclude, window, scale, st);
 }

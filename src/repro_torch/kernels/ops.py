@@ -9,12 +9,14 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.block_attention import (
-    cached_block_attention_kernel, kv_limit_from_pos, row_scalars)
+    cached_block_attention_kernel, kv_limit_from_pos,
+    paged_block_attention_kernel, row_scalars)
 from repro_torch.kernels.confidence import fused_confidence_kernel
 from repro_torch.kernels.fused_step import fused_step_kernel
 
 __all__ = ["cached_block_attention", "cached_block_attention_kernel",
            "fused_confidence", "fused_step", "kv_limit_from_pos",
+           "paged_block_attention", "paged_block_attention_kernel",
            "row_scalars"]
 
 
@@ -67,4 +69,34 @@ def cached_block_attention(q, cache_k, cache_v, block_k, block_v, *,
                           exclude_len=exclude_len)
     return cached_block_attention_kernel(
         q, cache_k, cache_v, block_k, block_v, kv_pos, scalars,
+        exclude_len=exclude_len, window=window)
+
+
+def paged_block_attention(q, pool_k, pool_v, block_k, block_v, *, kv_pos,
+                          page_table, slot, block_start, page_size: int,
+                          kv_limit=None, exclude_start=None,
+                          exclude_len: int = 0,
+                          window: int = 0) -> torch.Tensor:
+    """Block-step attention against a paged cache.
+
+    q [B,bs,H,D]; pool_k/v [P,ps,Kh,D] (one layer of the page pool);
+    block_k/v [B,bs,Kh,D]; kv_pos [T]; page_table [B, n_log] (-1 =
+    unmapped). ``slot`` / ``block_start`` / ``exclude_start`` /
+    ``kv_limit`` may each be an int, [] or per-row [B]; a retired row
+    passes ``kv_limit=0`` and reads none of its pages.
+    """
+    if pool_k.shape[1] != page_size:
+        raise ValueError(f"pool pages hold {pool_k.shape[1]} slots, "
+                         f"not page_size={page_size}")
+    if kv_limit is None:
+        kv_limit = kv_limit_from_pos(kv_pos)
+    if exclude_start is None:
+        exclude_len = 0
+    scalars = row_scalars(q.shape[0], q.device, slot=slot,
+                          block_start=block_start, kv_limit=kv_limit,
+                          exclude_start=exclude_start,
+                          exclude_len=exclude_len)
+    return paged_block_attention_kernel(
+        q, pool_k, pool_v, block_k, block_v, kv_pos,
+        page_table.to(torch.int32).contiguous(), scalars,
         exclude_len=exclude_len, window=window)

@@ -62,11 +62,14 @@ def as_row(v, B: int, device) -> torch.Tensor:
 
 def _block_attend_oracle(q, ck, cv, block_k, block_v, kv_pos, *, slot,
                          block_start, kv_limit, exclude_start,
-                         exclude_len: int, window: int) -> torch.Tensor:
+                         exclude_len: int, window: int,
+                         extra_valid=None) -> torch.Tensor:
     """Virtually write the fresh block at ``slot`` (a per-row mask, so a
     sentinel ``slot + bs > T`` leaves the block invisible), build the
     kv-side validity, dense softmax in float32. Fully masked rows output
-    0. Every geometry argument may be an int, [] or per-row [B]."""
+    0. Every geometry argument may be an int, [] or per-row [B].
+    ``extra_valid`` [B, T] masks cache slots further (the paged layout's
+    page-mapped mask); the fresh block stays visible."""
     B, bs, H, D = q.shape
     T, Kh = ck.shape[1], ck.shape[2]
     G = H // Kh
@@ -90,6 +93,8 @@ def _block_attend_oracle(q, ck, cv, block_k, block_v, kv_pos, *, slot,
 
     valid = torch.where(in_blk, True,
                         (posv >= 0) & (ids[None] < lim[:, None]))
+    if extra_valid is not None:
+        valid &= extra_valid | in_blk
     if exclude_start is not None and exclude_len:
         exc = as_row(exclude_start, B, dev)
         valid &= ~((ids[None] >= exc[:, None])
@@ -120,3 +125,30 @@ def cached_block_attention_ref(q, cache_k, cache_v, block_k, block_v,
         q, cache_k, cache_v, block_k, block_v, kv_pos, slot=slot,
         block_start=block_start, kv_limit=kv_limit,
         exclude_start=exclude_start, exclude_len=exclude_len, window=window)
+
+
+def paged_block_attention_ref(q, pool_k, pool_v, block_k, block_v, kv_pos,
+                              page_table, *, slot, block_start,
+                              kv_limit: Optional[object] = None,
+                              exclude_start=None, exclude_len: int = 0,
+                              window: int = 0) -> torch.Tensor:
+    """Plain version of the paged block attention kernel (K4).
+
+    Gathers each row's dense logical [T, Kh, D] view through its page
+    table (unmapped slots read page 0 and are masked), then runs the
+    dense oracle with the page-mapped mask as the extra validity term.
+
+    q [B,bs,H,D]; pool_k/v [P,ps,Kh,D]; block_k/v [B,bs,Kh,D]; kv_pos [T];
+    page_table [B, n_log] int32, -1 = unmapped.
+    """
+    ps, T = pool_k.shape[1], kv_pos.shape[0]
+    slots = torch.arange(T, device=q.device)
+    pp = page_table[:, torch.div(slots, ps, rounding_mode="floor")]
+    mapped = pp >= 0
+    pp = pp.clamp(min=0).long()
+    off = (slots % ps)[None]
+    return _block_attend_oracle(
+        q, pool_k[pp, off], pool_v[pp, off], block_k, block_v, kv_pos,
+        slot=slot, block_start=block_start, kv_limit=kv_limit,
+        exclude_start=exclude_start, exclude_len=exclude_len,
+        window=window, extra_valid=mapped)

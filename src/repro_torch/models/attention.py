@@ -155,10 +155,14 @@ def attention(q, k, v, *, q_pos, kv_pos, mode: str = "causal",
 def cached_block_attend(q, cache_k, cache_v, block_k, block_v, kv_pos, *,
                         slot: int, q_pos, kv_limit=None, exclude_start=None,
                         exclude_len: int = 0, window: int = 0,
-                        impl: str = "auto"):
+                        impl: str = "auto", row_valid=None):
     """The plain cached block step attention (the reference's scalar
     path): write the fresh K/V into a COPY of the layer's cache at
     ``slot``, mask with ``cache_valid_mask``, attend bidirectionally.
+
+    ``row_valid`` [B, T] adds a per-row slot mask on top of the shared
+    positional validity (the paged layout passes its page-mapped mask);
+    the fresh block always stays valid.
 
     Returns ``(out, (ck, cv))``: the written copies, for callers that
     commit the step. The inputs are left unchanged.
@@ -169,9 +173,48 @@ def cached_block_attend(q, cache_k, cache_v, block_k, block_v, kv_pos, *,
     kv_valid = cache_valid_mask(pos, exclude_start=exclude_start,
                                 exclude_len=exclude_len, window=window,
                                 q_last=q_pos[-1])
+    if row_valid is not None:
+        ids = torch.arange(kv_pos.shape[0], device=kv_pos.device)
+        in_block = (ids >= int(slot)) & (ids < int(slot) + q_pos.shape[0])
+        kv_valid = kv_valid[None] & (row_valid | in_block[None])
     bound = None if kv_limit is None else \
         max(int(kv_limit), int(slot) + q_pos.shape[0])
     out = attention(q, ck, cv, q_pos=q_pos, kv_pos=torch.clamp(pos, min=0),
                     mode="full", kv_valid=kv_valid, impl=impl,
                     kv_limit=bound)
     return out, (ck, cv)
+
+
+def paged_cached_block_attend(q, pool_k, pool_v, block_k, block_v,
+                              page_table, kv_pos, *, slot: int, q_pos,
+                              page_size: int, kv_limit=None, row_limit=None,
+                              exclude_start=None, exclude_len: int = 0,
+                              window: int = 0, impl: str = "auto"):
+    """Plain paged block step attention for one layer.
+
+    Gathers the dense logical view [B, T, Kh, D] through the page table
+    and runs the exact :func:`cached_block_attend` sequence on it, so with
+    every page mapped it equals the dense layout bitwise. Unmapped slots
+    are masked per row. A rank-1 ``kv_limit`` [B] is folded into the row
+    mask (the flash bound becomes the batch max); ``row_limit`` [B] only
+    refines the row mask: row ``b`` attends cache slots ``< row_limit[b]``
+    (a retired row, limit 0, attends only its fresh block). Returns
+    ``(out, mapped)``; committing the block into the pool is a separate
+    ``cache.paged_kv_write``.
+    """
+    T = kv_pos.shape[0]
+    ck, cv, mapped = cache_lib.paged_kv_gather(pool_k, pool_v, page_table,
+                                               T, page_size=page_size)
+    if kv_limit is not None and torch.as_tensor(kv_limit).ndim == 1:
+        row_limit = kv_limit if row_limit is None else \
+            torch.minimum(row_limit, kv_limit)
+        kv_limit = kv_limit.max()
+    if row_limit is not None:
+        ids = torch.arange(T, dtype=torch.int32, device=kv_pos.device)
+        mapped = mapped & (ids[None] < row_limit[:, None])
+    out, _ = cached_block_attend(
+        q, ck, cv, block_k, block_v, kv_pos, slot=slot, q_pos=q_pos,
+        kv_limit=kv_limit, exclude_start=exclude_start,
+        exclude_len=exclude_len, window=window, impl=impl,
+        row_valid=mapped)
+    return out, mapped

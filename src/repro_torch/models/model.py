@@ -12,6 +12,9 @@ Step vocabulary:
   block_step  diffusion denoising step: the active block attends
               [prefix cache | block] bidirectionally; ``write=True``
               commits the block's K/V into the cache (in place)
+
+Both take the dense cache or a paged one (a page pool read and written
+through per-row page tables).
 """
 from __future__ import annotations
 
@@ -23,7 +26,8 @@ from repro_torch.config.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models import cache as cache_lib
-from repro_torch.models.attention import attention, cached_block_attend
+from repro_torch.models.attention import (attention, cached_block_attend,
+                                          paged_cached_block_attend)
 from repro_torch.models.layers import (apply_rope, dense_init, embed,
                                        init_embedding, mlp, project,
                                        rms_norm, unembed)
@@ -172,28 +176,58 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
 
 
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
-            max_len: int, window: int = 0, mode: Optional[str] = None
+            max_len: int, window: int = 0, mode: Optional[str] = None,
+            cache: Optional[dict] = None, page_size: int = 0
             ) -> Tuple[torch.Tensor, dict]:
     """Forward over the prompt; returns (logits, cache). ``mode`` defaults
     to causal (sliding with a window); MDLM decoding passes "full". The
     cache is sized ``max_len`` (or the window) and holds the prompt's K/V.
+
+    ``cache``: an externally owned PAGED cache (``"kp"`` in
+    ``cache["attn"]``); the prompt's K/V scatter through its page table
+    into the pool, in place, instead of into a fresh dense buffer. The
+    page size is the pool's own (``page_size``, where given, must equal
+    it). A shared system-prompt prefix is prefilled once into refcounted
+    pages this way.
     """
     x = embed(params["embed"], tokens)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     if mode is None:
         mode = "sliding" if window else "causal"
-    kv_len = min(max_len, window) if window else max_len
-    kv = cache_lib.init_kv_cache(cfg.num_layers, B, kv_len, cfg.num_kv_heads,
-                                 cfg.resolved_head_dim, x.dtype, x.device)
+    if cache is not None:
+        if "kp" not in cache["attn"] or window:
+            raise ValueError("an external prefill cache must be a paged "
+                             "cache, with no window")
+        page_size = _pool_page_size(cache["attn"], page_size)
     ks, vs = [], []
     for l in range(cfg.num_layers):
         x, (k, v) = _attn_layer_full(layer_params(params["layers"], l), cfg,
                                      x, positions, mode, window)
         ks.append(k)
         vs.append(v)
+    if cache is not None:
+        kv = cache["attn"]
+        cache_lib.paged_kv_write_layers(kv["kp"], kv["vp"], torch.stack(ks),
+                                        torch.stack(vs), kv["pt"], 0,
+                                        page_size=page_size)
+        cache_lib.pos_write_slice(kv["pos"], positions, 0)
+        return _head(params, cfg, x), dict(cache, attn=dict(kv, length=S))
+    kv_len = min(max_len, window) if window else max_len
+    kv = cache_lib.init_kv_cache(cfg.num_layers, B, kv_len, cfg.num_kv_heads,
+                                 cfg.resolved_head_dim, x.dtype, x.device)
     kv = _store_prefill_kv(kv, torch.stack(ks), torch.stack(vs), positions)
     return _head(params, cfg, x), {"attn": kv}
+
+
+def _pool_page_size(kv: dict, page_size: int) -> int:
+    """The page size of a paged cache, read from its pool's shape; a given
+    ``page_size`` (the reference's static argument) must agree with it."""
+    ps = kv["kp"].shape[2]
+    if page_size and page_size != ps:
+        raise ValueError(f"page_size={page_size} does not match the pool's "
+                         f"page size {ps}")
+    return ps
 
 
 def _store_prefill_kv(kv_cache: dict, ks: torch.Tensor, vs: torch.Tensor,
@@ -222,6 +256,7 @@ def block_step(params: dict, cfg: ModelConfig, block_tokens: torch.Tensor,
                advance: bool = True, exclude_start: Optional[int] = None,
                exclude_len: int = 0, write_slot: Optional[int] = None,
                window: int = 0, attn_impl: str = "auto",
+               page_size: int = 0, row_live: Optional[torch.Tensor] = None,
                head: bool = True) -> Tuple[torch.Tensor, dict]:
     """One denoising forward of the active block against the cache.
 
@@ -239,11 +274,26 @@ def block_step(params: dict, cfg: ModelConfig, block_tokens: torch.Tensor,
     wrapper (the CUDA kernel on the card, which reads the fresh K/V as
     separate operands so nothing is copied on a step that does not write;
     its plain version on the CPU).
+
+    A PAGED cache (``"kp"`` in ``cache["attn"]``; its page size is the
+    pool's, and ``page_size``, where given, must equal it) is read
+    through its page table: the kernel (K4) reads pool pages in
+    place, the plain paths gather each row's logical view, and
+    ``write=True`` scatters the block into the pool (writes through
+    unmapped entries are dropped). ``row_live`` [B] bool (paged only)
+    gives rows marked dead a ``kv_limit`` of 0: they attend only their
+    fresh block and the kernel reads none of their pages; live rows keep
+    the shared valid extent, so an all-live mask changes nothing.
     """
     assert cfg.supports_mdlm, f"{cfg.name} is causal-only"
     x = embed(params["embed"], block_tokens)
     B, bs, _ = x.shape
     kv = cache["attn"]
+    paged = "kp" in kv
+    if paged:
+        if window:
+            raise ValueError("a paged cache has no window")
+        page_size = _pool_page_size(kv, page_size)
     block_start = int(block_start)
     q_pos = block_start + torch.arange(bs, dtype=torch.int32, device=x.device)
     slot = kv["length"] if write_slot is None else int(write_slot)
@@ -252,20 +302,45 @@ def block_step(params: dict, cfg: ModelConfig, block_tokens: torch.Tensor,
     if attn_impl in ("kernel", "flash"):
         # valid cache extent, shared across layers (one [T] reduction)
         kv_limit = kops.kv_limit_from_pos(kv["pos"])
+    row_limit = None
+    if paged and row_live is not None:
+        # per-row extent: retired rows stop reading their mapped pages
+        shared = kops.kv_limit_from_pos(kv["pos"]) if kv_limit is None \
+            else kv_limit
+        row_limit = torch.where(torch.as_tensor(row_live, device=x.device)
+                                .bool(), shared, 0).to(torch.int32)
     if use_kernel:
         # the kernel's per-row geometry, shared across layers (one copy)
         exc_len = exclude_len if exclude_start is not None else 0
         scalars = kops.row_scalars(
             B, x.device, slot=slot, block_start=block_start,
-            kv_limit=kv_limit, exclude_start=exclude_start,
-            exclude_len=exc_len)
+            kv_limit=kv_limit if row_limit is None else row_limit,
+            exclude_start=exclude_start, exclude_len=exc_len)
+    if paged and write:
+        # the mapped write entries, shared across layers (one host sync)
+        widx = cache_lib.paged_write_index(kv["pt"], slot, bs, page_size)
+    ck_all, cv_all = (kv["kp"], kv["vp"]) if paged else (kv["k"], kv["v"])
 
     for l in range(cfg.num_layers):
         lp = layer_params(params["layers"], l)
-        ck, cv = kv["k"][l], kv["v"][l]
+        ck, cv = ck_all[l], cv_all[l]
         hn = rms_norm(x, lp["ln1"], cfg.norm_eps)
         q, k, v = _qkv(lp, cfg, hn, q_pos)
-        if use_kernel:
+        if paged:
+            if use_kernel:
+                attn = kops.paged_block_attention_kernel(
+                    q, ck, cv, k, v, kv["pos"], kv["pt"], scalars,
+                    exclude_len=exc_len, window=window)
+            else:
+                attn, _ = paged_cached_block_attend(
+                    q, ck, cv, k, v, kv["pt"], kv["pos"], slot=slot,
+                    q_pos=q_pos, page_size=page_size, kv_limit=kv_limit,
+                    row_limit=row_limit, exclude_start=exclude_start,
+                    exclude_len=exclude_len, window=window, impl=attn_impl)
+            if write:
+                cache_lib.paged_kv_write(ck, cv, k, v, kv["pt"], slot,
+                                         page_size=page_size, index=widx)
+        elif use_kernel:
             attn = kops.cached_block_attention_kernel(
                 q, ck, cv, k, v, kv["pos"], scalars, exclude_len=exc_len,
                 window=window)

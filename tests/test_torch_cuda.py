@@ -11,7 +11,8 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.block_attention import (
-    cached_block_attention_kernel, kv_limit_from_pos, row_scalars)
+    cached_block_attention_kernel, kv_limit_from_pos,
+    paged_block_attention_kernel, row_scalars)
 from repro_torch.kernels.confidence import fused_confidence_kernel
 from repro_torch.kernels.fused_step import fused_step_kernel
 
@@ -59,6 +60,71 @@ def test_block_attention_kernel(dev, B, bs, H, Kh, D, T, fill, slot, exc,
     assert cached_block_attention_kernel.launches == n0 + 1
     want = ref.cached_block_attention_ref(q, ck, cv, bk, bv, pos, **kw)
     torch.testing.assert_close(out, want, rtol=0, atol=1e-5)
+
+
+def _paged_inputs(g, dev, B, bs, H, Kh, D, T, ps, spare=3):
+    """Random pool and q/k/v, and a random permutation of physical pages
+    as every row's page table (``n_log * ps >= T``)."""
+    n_log = -(-T // ps)
+    P = B * n_log + spare
+    pt = torch.randperm(P, generator=g, device=dev)[:B * n_log] \
+        .reshape(B, n_log).to(torch.int32)
+    return (_rand(g, B, bs, H, D, dev=dev), _rand(g, P, ps, Kh, D, dev=dev),
+            _rand(g, P, ps, Kh, D, dev=dev), _rand(g, B, bs, Kh, D, dev=dev),
+            _rand(g, B, bs, Kh, D, dev=dev), pt)
+
+
+@pytest.mark.parametrize("B,bs,H,Kh,D,T,ps,fill,exc,window,hole,dead", [
+    (2, 8, 8, 2, 64, 100, 16, 40, None, 0, True, False),  # GQA, ragged T
+    (2, 32, 4, 4, 128, 96, 16, 64, (16, 32), 0, False, False),  # exclude
+    (1, 8, 4, 4, 32, 64, 16, 40, None, 12, False, False),  # window
+    (3, 8, 4, 4, 64, 90, 5, 60, None, 0, True, True),  # ps 5, retired row
+])
+def test_paged_block_attention_kernel(dev, B, bs, H, Kh, D, T, ps, fill,
+                                      exc, window, hole, dead):
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, pk, pv, bk, bv, pt = _paged_inputs(g, dev, B, bs, H, Kh, D, T, ps)
+    if hole:
+        pt[-1, 1] = -1  # an unmapped page inside the valid extent
+    ar = torch.arange(T, device=dev)
+    pos = torch.where(ar < fill, ar, -1).to(torch.int32)
+    lim = torch.full((B,), fill, dtype=torch.int32, device=dev)
+    if dead:
+        lim[0] = 0
+    exc_start, exc_len = exc if exc else (None, 0)
+    sc = row_scalars(B, dev, slot=fill, block_start=fill, kv_limit=lim,
+                     exclude_start=exc_start, exclude_len=exc_len)
+    n0 = paged_block_attention_kernel.launches
+    out = paged_block_attention_kernel(q, pk, pv, bk, bv, pos, pt, sc,
+                                       exclude_len=exc_len, window=window)
+    torch.cuda.synchronize()
+    assert paged_block_attention_kernel.launches == n0 + 1
+    want = ref.paged_block_attention_ref(
+        q, pk, pv, bk, bv, pos, pt, slot=fill, block_start=fill,
+        kv_limit=lim, exclude_start=exc_start, exclude_len=exc_len,
+        window=window)
+    torch.testing.assert_close(out, want, rtol=0, atol=1e-5)
+
+
+def test_paged_kernel_is_dense_kernel_on_gathered_view(dev):
+    """K4 and K1 share one body: with every page mapped, K4 over any page
+    table gives K1's result on the gathered dense view bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    B, bs, H, Kh, D, T, ps, fill = 3, 16, 8, 2, 128, 80, 16, 48
+    q, pk, pv, bk, bv, pt = _paged_inputs(g, dev, B, bs, H, Kh, D, T, ps)
+    q, pk, pv, bk, bv = (t.to(torch.bfloat16) for t in (q, pk, pv, bk, bv))
+    ar = torch.arange(T, device=dev)
+    pos = torch.where(ar < fill, ar, -1).to(torch.int32)
+    lim = torch.tensor([fill, 0, fill], dtype=torch.int32, device=dev)
+    sc = row_scalars(B, dev, slot=fill, block_start=fill, kv_limit=lim)
+    slots = torch.arange(T, device=dev)
+    phys = pt[:, slots // ps].long()
+    ck, cv = pk[phys, slots % ps], pv[phys, slots % ps]
+    paged = paged_block_attention_kernel(q, pk, pv, bk, bv, pos, pt, sc)
+    dense = cached_block_attention_kernel(q, ck.contiguous(),
+                                          cv.contiguous(), bk, bv, pos, sc)
+    torch.cuda.synchronize()
+    assert torch.equal(paged, dense)
 
 
 def test_confidence_kernel(dev):
