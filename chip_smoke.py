@@ -19,8 +19,12 @@ Needs one CUDA device and exits non-zero without one. In order it:
      (K4 + K3), whose tokens, NFE and steps must equal the dense run's, and
      a 64-token system prefix prefilled once into allocator pages that
      every row forks, which must decode as private copies of those pages
-     do and stay byte-identical; and checks a reduced model's decode on
-     the card against the same decode on the CPU;
+     do and stay byte-identical; then the int8 path: the weights quantized
+     on the card, the same OSDT decode through the unfused epilogue with
+     the int8 matmul kernel (K5) in every projection and the head, and
+     the same Phase 2 on the dequantized weights through the bf16 path;
+     and checks a reduced model's decode (bf16 and int8 weights) on the
+     card against the same decode on the CPU;
   4. times each kernel, its plain version and, where one exists, one
      PyTorch call computing the same function (device time: CUDA graph
      replays between CUDA events), beside the least time the card could
@@ -331,7 +335,69 @@ def check_kernels(dev):
         check(rel <= 1e-3 and mism == 0 and amism == 0, f"K3 {name}")
         if name == "main_untied":
             errs["fused_step"] = float((conf - rc).abs().max())
+
+    errs["quantized_matmul"] = check_quantized_matmul(gen, dev)
     return errs
+
+
+def f32_close(out, want):
+    """max |out - want| <= 1e-4 rms(want): float32 sums of K products in
+    another order differ by ~sqrt(K) 2^-24 rms (~4e-6 rms at K = 4096),
+    while a TF32 product (10-bit mantissa) or a weight rounded to bf16
+    misses by ~1e-3 rms."""
+    err = float((out - want).abs().max())
+    return err <= 1e-4 * float(want.square().mean().sqrt()), err
+
+
+def check_quantized_matmul(gen, dev):
+    """K5 against its plain version at the main path's shapes (bf16 block
+    step R = 256 and prefill R = 1024 over LLaDA-8B's projections, the
+    f32 head at R = 256), the transposed layout, and a ragged shape in
+    both layouts and dtypes. Returns the main case's max abs error."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.quantized_matmul import \
+        quantized_matmul_kernel as k5
+    from repro_torch.models.quantize import quantize_tensor
+
+    M, F, V = 4096, 12288, 126464
+    cases = [(f"bf16 R={R} [{K}, {N}]", R, K, N, False, torch.bfloat16)
+             for R in (BATCH * BLOCK, BATCH * PROMPT)
+             for K, N in ((M, M), (M, F), (F, M))]
+    cases += [
+        (f"bf16 R=256 [{M}, {M}] transposed", 256, M, M, True,
+         torch.bfloat16),
+        (f"f32 head R=256 [{M}, {V}]", 256, M, V, False, torch.float32),
+        ("f32 tied head R=256 [32000, 4096] transposed", 256, M, 32000,
+         True, torch.float32),
+    ]
+    cases += [(f"{'bf16' if dt == torch.bfloat16 else 'f32'} ragged "
+               f"(13, 200, 513){' transposed' if tr else ''}", 13, 200, 513,
+               tr, dt) for dt in (torch.bfloat16, torch.float32)
+              for tr in (False, True)]
+    main = None
+    for name, R, K, N, tr, dt in cases:
+        x = torch.randn((R, K), generator=gen, device=dev).to(dt)
+        w = torch.randn((N, K) if tr else (K, N), generator=gen,
+                        device=dev) * K ** -0.5
+        qt = quantize_tensor(w, axis=-1 if tr else -2)
+        del w
+        out = k5(x, qt.q, qt.scale, transpose=tr)
+        want = ref.quantized_matmul_ref(x, qt.q, qt.scale, transpose=tr)
+        torch.cuda.synchronize()
+        if dt == torch.bfloat16:
+            ok, err = bf16_close(out, want)
+            tol = "2^-7 relative + 1e-4"
+        else:
+            ok, err = f32_close(out, want)
+            tol = "1e-4 rms"
+        log(f"K5 {name}: max_abs_err={err:.3e} (tolerance {tol})")
+        check(ok and out.dtype == dt and out.shape == (R, N),
+              f"K5 {name} within {tol}")
+        if name == f"bf16 R=256 [{M}, {F}]":
+            main = err
+        del x, qt, out, want
+    torch.cuda.empty_cache()
+    return main
 
 
 # ---------------------------------------------------------------------------
@@ -349,15 +415,18 @@ def read_counts(kernels):
 
 def reduced_reference_check(dev):
     """A reduced LLaDA-8B (f32) decoded through OSDT on the card (kernel
-    paths, fused and unfused) and on the CPU (plain paths): the tokens
-    must agree (>= 0.95 of them: a float32 near-tie may flip) and the
-    calibrated tables to 1e-4."""
+    paths: fused, unfused, and unfused on int8 weights) and on the CPU
+    (plain paths): the tokens must agree (bf16 weights: >= 0.95 of them,
+    a float32 near-tie may flip; int8: all) and the calibrated tables to
+    1e-4."""
     from repro_torch.config.base import DecodeConfig
     from repro_torch.config.registry import get_config
     from repro_torch.core.decoder import make_generate_fn
     from repro_torch.core.osdt import OSDTSession
     from repro_torch.data import tokenizer as tok
     from repro_torch.models import model as M
+    from repro_torch.models.quantize import (quantize_decode_params,
+                                             tree_leaves)
 
     cfg = dataclasses.replace(
         get_config("llada-8b").reduced(num_layers=2, max_d_model=128,
@@ -367,14 +436,23 @@ def reduced_reference_check(dev):
                         cap=0.75, slack=0.2, step_fusion="fused")
     cpu = M.init_params(cfg, seed=SEED, device="cpu")
     gpu = _to(cpu, dev)
+    # int8: quantized on each device; the two must be bitwise equal
+    q_cpu = quantize_decode_params(cpu, cfg)
+    q_gpu = quantize_decode_params(gpu, cfg)
+    check(all(torch.equal(a.cpu(), b) for a, b in
+              zip(tree_leaves(q_gpu), tree_leaves(q_cpu))),
+          "int8 quantization on the card is bitwise the CPU's")
     prompts = np.random.default_rng(SEED).integers(0, 256, (4, 16))
     rates = []
-    for fusion in ("fused", "unfused"):
+    for fusion, wd in (("fused", "bf16"), ("unfused", "bf16"),
+                       ("unfused", "int8")):
         res = {}
-        for name, params in (("cpu", cpu), ("gpu", gpu)):
-            gen = make_generate_fn(cfg, dcfg, attn_impl="kernel",
-                                   step_fusion=fusion, use_kernel=True)
-            s = OSDTSession(params, cfg, dcfg, tok.MASK_ID, gen_fn=gen)
+        dc = dataclasses.replace(dcfg, step_fusion=fusion, weight_dtype=wd)
+        for name, params in (("cpu", q_cpu if wd == "int8" else cpu),
+                             ("gpu", q_gpu if wd == "int8" else gpu)):
+            gen = make_generate_fn(cfg, dc, attn_impl="kernel",
+                                   use_kernel=True)
+            s = OSDTSession(params, cfg, dc, tok.MASK_ID, gen_fn=gen)
             r1 = s.generate(prompts[:1])
             r2 = s.generate(prompts)
             res[name] = (s.table, r1.tokens.cpu(), r2.tokens.cpu())
@@ -382,16 +460,29 @@ def reduced_reference_check(dev):
         match = float(torch.cat([
             (res["cpu"][i] == res["gpu"][i]).flatten() for i in (1, 2)])
             .float().mean())
-        log(f"reduced model, {fusion}: card-vs-CPU token match={match:.4f} "
+        label = f"{'int8 ' if wd == 'int8' else ''}{fusion}"
+        log(f"reduced model, {label}: card-vs-CPU token match={match:.4f} "
             f"table max_abs_err={tab_err:.2e}")
-        check(match >= 0.95 and tab_err <= 1e-4,
-              f"reduced {fusion} decode agrees with the CPU")
+        # int8: tokens must be equal (the K5 float32 path against the
+        # plain float32 product); bf16 keeps its 0.95 floor
+        check((match == 1.0 if wd == "int8" else match >= 0.95)
+              and tab_err <= 1e-4, f"reduced {label} decode agrees with "
+              f"the CPU")
         rates.append(match)
     return rates
 
 
 def _to(tree, dev):
     return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+def _map_quantized(tree, fn):
+    """``tree`` with every QuantizedTensor replaced by ``fn(name, qt)``."""
+    from repro_torch.models.quantize import QuantizedTensor
+
+    return {k: _map_quantized(v, fn) if isinstance(v, dict) else
+            fn(k, v) if isinstance(v, QuantizedTensor) else v
             for k, v in tree.items()}
 
 
@@ -402,13 +493,14 @@ def main_path(dev, kernels):
     from repro_torch.core.osdt import OSDTSession
     from repro_torch.data import tokenizer as tok
     from repro_torch.models import model as M
+    from repro_torch.models.quantize import tree_leaves
 
     cfg = dataclasses.replace(get_config("llada-8b"),
                               mask_token_id=tok.MASK_ID)
     t0 = time.perf_counter()
     params = M.init_params(cfg, seed=SEED, device=dev)
     torch.cuda.synchronize()
-    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
     log(f"LLaDA-8B full width: {cfg.num_layers} layers, d={cfg.d_model}, "
         f"{cfg.num_heads} heads x {cfg.resolved_head_dim}, d_ff={cfg.d_ff}, "
         f"vocab={cfg.vocab_size}, {nbytes / 1e9:.2f} GB bf16 weights, "
@@ -452,8 +544,9 @@ def main_path(dev, kernels):
           and unfused_counts["confidence"] > 0,
           "the unfused run launched K1 and K2")
     check(all(c > 0 for n, c in counts.items()
-              if n != "paged_block_attention"),
-          "every kernel of the dense path launched")
+              if n not in ("paged_block_attention", "quantized_matmul")),
+          "every kernel of the dense bf16 path launched")
+    check(counts["quantized_matmul"] == 0, "the bf16 path launched no K5")
 
     table = session.table
     log(f"calibrated OSDT table (block x step 0): "
@@ -484,11 +577,109 @@ def main_path(dev, kernels):
         f" GB")
     paged_counts = paged_path(dev, kernels, params, cfg, dcfg, table,
                               prompts, out["phase2_osdt_fused"][0])
+    int8_counts, int8_session = int8_path(dev, kernels, params, cfg, dcfg,
+                                          prompts)
     # last: the profiler may leave the host slower for what follows it
-    profile_phase2(session, prompts)
-    del params
+    profile_phase2(session, prompts, "bf16 fused")
+    profile_phase2(int8_session, prompts, "int8 unfused")
+    del params, session, int8_session
     torch.cuda.empty_cache()
-    return {n: counts[n] + paged_counts[n] for n in counts}
+    return {n: counts[n] + paged_counts[n] + int8_counts[n] for n in counts}
+
+
+def int8_path(dev, kernels, params, cfg, dcfg, prompts):
+    """The int8 weight-streaming path: the params quantized on the card
+    (``quantize_decode_params``), then OSDT (Phase 1 on one row, Phase 2
+    on the batch) through the unfused epilogue, where every projection
+    and the head run K5 (7 x 32 + 1 = 225 launches a forward at
+    LLaDA-8B's depth) and the
+    confidence pass K2. Then the same Phase 2 on the dequantized weights
+    through the raw bf16 path (projections bf16, the head float32, as
+    K5 rounds them): the same function up to the order of the sums, so
+    its token match and NFE are printed beside the int8 run's. Returns
+    the launch counts of the int8 session and the session."""
+    from repro_torch.core.decoder import make_generate_fn
+    from repro_torch.core.osdt import OSDTSession
+    from repro_torch.data import tokenizer as tok
+    from repro_torch.models.quantize import (decode_weight_bytes, dequantize,
+                                             quantize_decode_params)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qparams = quantize_decode_params(params, cfg)
+    torch.cuda.synchronize()
+    log(f"int8 quantization on the card: "
+        f"{time.perf_counter() - t0:.2f}s; decode_weight_bytes bf16 "
+        f"{decode_weight_bytes(params, cfg)} B, int8 "
+        f"{decode_weight_bytes(qparams, cfg)} B")
+    qdcfg = dataclasses.replace(dcfg, step_fusion="unfused",
+                                weight_dtype="int8")
+    gen = make_generate_fn(cfg, qdcfg, attn_impl="kernel", use_kernel=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    session = OSDTSession(qparams, cfg, qdcfg, tok.MASK_ID, gen_fn=gen)
+    out = {}
+    for phase, rows in (("int8_phase1_calibrate", prompts[:1]),
+                        ("int8_phase2_osdt_unfused", prompts)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = session.generate(rows)
+        torch.cuda.synchronize()
+        out[phase] = (res, time.perf_counter() - t0)
+    counts = read_counts(kernels)
+    nfe = sum(res.nfe for res, _ in out.values())
+    per_forward = 7 * cfg.num_layers + 1
+    log(f"launches, int8 session (both phases, {nfe} forwards): {counts}")
+    check(counts["quantized_matmul"] == per_forward * nfe,
+          f"K5 launched {per_forward} times a forward (7 projections x "
+          f"{cfg.num_layers} layers + the head)")
+    check(counts["confidence"] > 0 and counts["block_attention"] > 0,
+          "the int8 session launched K2 and K1")
+    check(counts["fused_step"] == 0 and counts["paged_block_attention"] == 0,
+          "the int8 session ran no K3 and no K4")
+    for phase, (res, secs) in out.items():
+        toks = res.tokens
+        rows = toks.shape[0]
+        check(tuple(toks.shape) == (rows, NEW)
+              and not bool((toks == tok.MASK_ID).any())
+              and bool(torch.isfinite(res.conf).all()), f"{phase} output")
+        log(f"{phase}: rows={rows} NFE={res.nfe} "
+            f"steps_per_block={res.steps_per_block.tolist()} "
+            f"thr_steps={int(res.thr_steps.sum())} wall={secs:.3f}s "
+            f"tokens/s={rows * NEW / secs:.1f} "
+            f"ms/forward={secs / res.nfe * 1e3:.2f}")
+    check(int(out["int8_phase1_calibrate"][0].thr_steps.sum()) == 0,
+          "int8 Phase 1 (static 0.9 on random weights) ran the fallback")
+    check(int(out["int8_phase2_osdt_unfused"][0].thr_steps.sum()) > 0,
+          "int8 Phase 2 ran the threshold path")
+    log(f"calibrated int8 OSDT table (block x step 0): "
+        f"{[float(f'{v:.3e}') for v in session.table[:, 0]]}")
+    log(f"peak device memory through the int8 session: "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    # the same Phase 2 on the dequantized weights, through the bf16 path
+    dq = _map_quantized(qparams, lambda name, qt: dequantize(qt) if
+                        name == "head" else dequantize(qt).to(torch.bfloat16))
+    gen_dq = make_generate_fn(cfg, dataclasses.replace(
+        dcfg, step_fusion="unfused"), attn_impl="kernel", use_kernel=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res_dq = gen_dq(dq, prompts, session.table, tok.MASK_ID)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    res_q = out["int8_phase2_osdt_unfused"][0]
+    match = float((res_dq.tokens == res_q.tokens).float().mean())
+    log(f"dequantized-weights Phase 2 (bf16 path): NFE={res_dq.nfe} "
+        f"steps_per_block={res_dq.steps_per_block.tolist()} "
+        f"ms/forward={secs / res_dq.nfe * 1e3:.2f}; against the int8 "
+        f"run: token match={match:.4f}, NFE {res_dq.nfe} vs {res_q.nfe}")
+    # the same function up to the order of the float32 sums: a K5 fault
+    # the per-shape checks miss (a layer's sliced view) shows here
+    check(res_dq.nfe == res_q.nfe and match >= 0.99,
+          "the int8 Phase 2 decodes as the dequantized weights do")
+    del dq, res_dq
+    torch.cuda.empty_cache()
+    return counts, session
 
 
 def paged_path(dev, kernels, params, cfg, dcfg, table, prompts, dense):
@@ -605,10 +796,10 @@ def paged_path(dev, kernels, params, cfg, dcfg, table, prompts, dense):
     return counts
 
 
-def profile_phase2(session, prompts):
-    """One more Phase-2 fused generate under ``torch.profiler``: the
-    device's busy share of the wall time, the kernels that take it, and
-    the host calls that launch and wait."""
+def profile_phase2(session, prompts, label):
+    """One more Phase-2 generate under ``torch.profiler``: the device's
+    busy share of the wall time, the kernels that take it (and K5's
+    share, ``qmm_*``), and the host calls that launch and wait."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -629,12 +820,14 @@ def profile_phase2(session, prompts):
                   key=dev_us, reverse=True)
     busy = sum(dev_us(e) for e in kern) / 1e6
     if busy == 0:
-        log("profiled Phase 2: the trace holds no device time "
+        log(f"profiled Phase 2 {label}: the trace holds no device time "
             "(busy share not measured)")
         return
-    log(f"profiled Phase 2 fused (under the profiler): NFE={res.nfe} "
+    k5 = sum(dev_us(e) for e in kern if "qmm_" in e.key) / 1e6
+    log(f"profiled Phase 2 {label} (under the profiler): NFE={res.nfe} "
         f"wall={wall:.3f}s device busy={busy:.3f}s "
-        f"({busy / wall:.1%}), {sum(e.count for e in kern)} kernels")
+        f"({busy / wall:.1%}), {sum(e.count for e in kern)} kernels; "
+        f"K5 device {k5:.3f}s ({k5 / busy:.1%} of busy)")
     for e in kern[:10]:
         log(f"  device {dev_us(e) / 1e3:9.2f} ms x{e.count:6d}  "
             f"{e.key[:100]}")
@@ -646,14 +839,6 @@ def profile_phase2(session, prompts):
             e = host[name]
             log(f"  host {e.cpu_time_total / 1e3:9.2f} ms x{e.count:6d}  "
                 f"{name}")
-
-
-def _leaves(tree):
-    for v in tree.values():
-        if isinstance(v, dict):
-            yield from _leaves(v)
-        else:
-            yield v
 
 
 # ---------------------------------------------------------------------------
@@ -800,6 +985,9 @@ def time_kernels(dev):
         library_ms=None,
         bound=bound(M * V * 2 + R * M * 2 + R * 5 + R * 9, 2 * R * M * V,
                     BF16_OPS_PER_S))
+    del xs, w
+    torch.cuda.empty_cache()
+    res.update(time_quantized_matmul(gen, dev))
     for name, r in res.items():
         for key in ("ms", "plain_ms", "library_ms"):
             if r[key] is not None:
@@ -815,6 +1003,94 @@ def time_kernels(dev):
     return res
 
 
+def int8pack_yardstick(x, qt, out, transpose):
+    """``torch._weight_int8pack_mm`` on the same inputs, as a timing
+    yardstick for K5, or None with the reason when it does not compute
+    K5's function within K5's tolerance. It takes q as [N, K] and the
+    scales in x's dtype (bf16 scales for bf16 x, so a bf16 call is a
+    near neighbour of K5's function, not the same one)."""
+    qn = (qt.q if transpose else qt.q.t()).contiguous()
+    sc = qt.scale.reshape(-1).to(x.dtype).contiguous()
+    try:
+        got = torch._weight_int8pack_mm(x, qn, sc)
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        return None, f"does not run: {str(e).splitlines()[0][:120]}"
+    ok, err = (bf16_close if x.dtype == torch.bfloat16 else f32_close)(
+        got, out)
+    if not ok:
+        return None, f"disagrees with K5 (max_abs_err {err:.3e})"
+    return (lambda i: torch._weight_int8pack_mm(x, qn, sc)), \
+        f"agrees with K5 (max_abs_err {err:.3e})"
+
+
+def time_quantized_matmul(gen, dev):
+    """K5 at the main path's shapes: the bf16 projections at the block
+    step (R = 256) and the prefill (R = 1024), and the f32 head. Several
+    weight copies rotate where one fits in the 50 MB L2, so each launch
+    streams its weight from HBM as a layer of the forward does. Prints
+    every shape; returns the block step's [4096, 12288] as the kernel's
+    row. The bf16 cuBLAS product on an unquantized bf16 weight of the
+    same shape is printed too: a different function (twice the weight
+    bytes), shown only as a yardstick."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.quantized_matmul import \
+        quantized_matmul_kernel as k5
+    from repro_torch.models.quantize import quantize_tensor
+
+    bf = torch.bfloat16
+    M, F, V = 4096, 12288, 126464
+    shapes = [(f"bf16 R={R} [{K}, {N}]", R, K, N, bf)
+              for R in (BATCH * BLOCK, BATCH * PROMPT)
+              for K, N in ((M, M), (M, F), (F, M))]
+    shapes += [(f"f32 head R={R} [{M}, {V}]", R, M, V, torch.float32)
+               for R in (BATCH * BLOCK, BATCH * PROMPT)]
+    rows = {}
+    for label, R, K, N, dt in shapes:
+        copies = max(1, min(4, -(-100_000_000 // (K * N))))
+        qts = [quantize_tensor(torch.randn((K, N), generator=gen,
+                                           device=dev) * K ** -0.5, axis=-2)
+               for _ in range(copies)]
+        x = torch.randn((R, K), generator=gen, device=dev).to(dt)
+
+        def run(i):
+            qt = qts[i % copies]
+            return k5(x, qt.q, qt.scale, transpose=False)
+
+        def plain(i):
+            qt = qts[i % copies]
+            return ref.quantized_matmul_ref(x, qt.q, qt.scale,
+                                            transpose=False)
+
+        lib_fn, lib_note = int8pack_yardstick(x, qts[0], run(0), False)
+        head = dt == torch.float32
+        iters = 3 if head else 20
+        nbytes = (R * K + R * N) * x.element_size() + K * N + 4 * N
+        r = dict(ms=cuda_ms(run, iters),
+                 plain_ms=cuda_ms(plain, 2 if head else 10),
+                 library_ms=cuda_ms(lib_fn, iters) if lib_fn else None,
+                 bound=bound(nbytes, 2 * R * K * N,
+                             F32_OPS_PER_S if head else BF16_OPS_PER_S))
+        ws = [(torch.randn((K, N), generator=gen, device=dev)
+               * K ** -0.5).to(bf) for _ in range(copies)]
+        cublas = cuda_ms(lambda i: x.to(bf) @ ws[i % copies], iters)[0]
+        rate = "f32 FMA 67 TF/s" if head else "bf16 989 TF/s"
+        lib = "none" if r["library_ms"] is None else \
+            f"{r['library_ms'][0]:.4f} ms"
+        log(f"time quantized_matmul {label} (graph replay, median of 5, "
+            f"{copies} weight copies): kernel {r['ms'][0]:.4f} ms "
+            f"[{r['ms'][1]:.4f}-{r['ms'][2]:.4f}], plain "
+            f"{r['plain_ms'][0]:.4f} ms, library (_weight_int8pack_mm) "
+            f"{lib} [{lib_note}], bound {r['bound'][0]:.4f} ms "
+            f"({r['bound'][1]}, HBM 3.35 TB/s, {rate}); bf16 cuBLAS on an "
+            f"unquantized bf16 weight (a different function): "
+            f"{cublas:.4f} ms")
+        rows[label] = r
+        del qts, x, ws
+        torch.cuda.empty_cache()
+    return {"quantized_matmul": rows[f"bf16 R={BATCH * BLOCK} [{M}, {F}]"]}
+
+
 KERNEL_META = {
     "block_attention": ("src/repro_torch/kernels/csrc/block_attention.cu",
                         "src/repro/kernels/block_attention.py:218"),
@@ -825,6 +1101,8 @@ KERNEL_META = {
     "paged_block_attention": (
         "src/repro_torch/kernels/csrc/block_attention.cu",
         "src/repro/kernels/block_attention.py:361"),
+    "quantized_matmul": ("src/repro_torch/kernels/csrc/quantized_matmul.cu",
+                         "src/repro/kernels/quantized_matmul.py:61"),
 }
 
 
@@ -839,6 +1117,7 @@ def main() -> int:
         cached_block_attention_kernel, paged_block_attention_kernel)
     from repro_torch.kernels.confidence import fused_confidence_kernel
     from repro_torch.kernels.fused_step import fused_step_kernel
+    from repro_torch.kernels.quantized_matmul import quantized_matmul_kernel
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -859,7 +1138,8 @@ def main() -> int:
     kernels = {"block_attention": cached_block_attention_kernel,
                "confidence": fused_confidence_kernel,
                "fused_step": fused_step_kernel,
-               "paged_block_attention": paged_block_attention_kernel}
+               "paged_block_attention": paged_block_attention_kernel,
+               "quantized_matmul": quantized_matmul_kernel}
     t0 = time.perf_counter()
     errs = check_kernels(dev)
     log(f"kernel checks passed ({time.perf_counter() - t0:.1f}s)")

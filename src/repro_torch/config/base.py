@@ -85,6 +85,10 @@ class DecodeConfig:
     # denoising-step epilogue: unfused (head product, confidence pass,
     # select) or fused (one kernel, logits never reach memory)
     step_fusion: str = "unfused"
+    # decode weight storage: bf16 (the params as they are) or int8
+    # (``models.quantize.quantize_decode_params``: per-channel int8 with
+    # float32 scales, the projections run through the int8 matmul kernel)
+    weight_dtype: str = "bf16"
 
     @property
     def num_blocks(self) -> int:

@@ -5,7 +5,8 @@ weights, stacked ``[L, ...]`` layer leaves), so conversion is a leaf-wise
 copy:
 
 * ``params_from_numpy`` takes the reference's params pytree with numpy
-  leaves (``jax.tree.map(np.asarray, params)``);
+  leaves (``jax.tree.map(np.asarray, params)``), int8-quantized trees
+  included;
 * ``load_checkpoint`` reads the reference's checkpoint file: a msgpack
   map from ``/``-joined key paths to ``{dtype, shape, data}`` plus a
   ``__meta__`` dict.
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models.quantize import QuantizedTensor
 
 
 def _bf16_from_bits(bits: np.ndarray, device) -> torch.Tensor:
@@ -36,12 +38,20 @@ def _to_tensor(arr: np.ndarray, device) -> torch.Tensor:
 
 
 def params_from_numpy(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
-    """Nested dict of numpy arrays -> the same nest of tensors."""
+    """Nested dict of numpy arrays -> the same nest of tensors.
+
+    A quantized node (the reference's ``QuantizedTensor`` after
+    ``jax.tree.map(np.asarray, ...)``, known by its fields ``(q, scale)``)
+    becomes the port's :class:`QuantizedTensor`, ``q`` int8 and ``scale``
+    float32 as stored."""
     device = resolve_device(device)
 
     def conv(node):
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
+        if getattr(type(node), "_fields", None) == QuantizedTensor._fields:
+            return QuantizedTensor(_to_tensor(node.q, device),
+                                   _to_tensor(node.scale, device))
         return _to_tensor(node, device)
 
     return conv(tree)

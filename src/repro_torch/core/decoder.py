@@ -36,6 +36,7 @@ from repro_torch.core.calibrate import CalibrationProfile
 from repro_torch.core.confidence import confidence
 from repro_torch.kernels import ops as kops
 from repro_torch.models import model as M
+from repro_torch.models.quantize import WEIGHT_DTYPES
 
 
 class GenerateResult(NamedTuple):
@@ -84,7 +85,8 @@ def make_generate_fn(cfg: ModelConfig, dcfg: DecodeConfig, *,
                      use_cache: bool = True, quota: int = 0,
                      use_kernel: bool = False, cache_mode: str = "",
                      attn_impl: str = "", step_fusion: str = "",
-                     cache_layout: str = "", shared_prefix_len: int = 0):
+                     cache_layout: str = "", shared_prefix_len: int = 0,
+                     weight_dtype: str = ""):
     """Build the generate function.
 
     fn(params, prompt [B, P] int, table, mask_id, live [B] bool = None,
@@ -114,19 +116,28 @@ def make_generate_fn(cfg: ModelConfig, dcfg: DecodeConfig, *,
     "paged"; ``shared_prefix_len`` (paged only, a multiple of
     ``dcfg.page_size``) marks the first ``Sp`` prompt positions as already
     prefilled into the mapped pages: prefill then encodes only
-    ``prompt[:, Sp:]`` against them. Everything runs on the device that
-    holds ``params``.
+    ``prompt[:, Sp:]`` against them. ``weight_dtype`` (default
+    ``dcfg.weight_dtype``, else "bf16") is checked against
+    ``WEIGHT_DTYPES`` and otherwise unused: the reference keys its
+    compiled programs on it, and this eager port has no such cache. The
+    weights route by type, as in the reference: the ``QuantizedTensor``
+    leaves of ``models.quantize.quantize_decode_params`` output take
+    every projection and the head through the int8 matmul. The fused
+    epilogue with int8 params needs K6 and raises. Everything runs on
+    the device that holds ``params``.
     """
     cache_mode = cache_mode or ("prefix" if use_cache else "none")
     attn_impl = attn_impl or dcfg.attn_impl
     step_fusion = step_fusion or dcfg.step_fusion
     cache_layout = cache_layout or dcfg.cache_layout
+    weight_dtype = weight_dtype or dcfg.weight_dtype or "bf16"
     if cache_mode not in ("prefix", "dual", "none") or attn_impl not in (
             "auto", "dense", "flash", "kernel") or step_fusion not in (
-            "unfused", "fused") or cache_layout not in ("dense", "paged"):
+            "unfused", "fused") or cache_layout not in ("dense", "paged") \
+            or weight_dtype not in WEIGHT_DTYPES:
         raise ValueError(f"unknown decode variant {cache_mode!r}, "
                          f"{attn_impl!r}, {step_fusion!r}, "
-                         f"{cache_layout!r}")
+                         f"{cache_layout!r}, {weight_dtype!r}")
     assert cfg.supports_mdlm, f"{cfg.name}: diffusion decoding inapplicable"
     use_cache = cache_mode != "none"
     dual = cache_mode == "dual"

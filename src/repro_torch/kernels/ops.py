@@ -13,11 +13,27 @@ from repro_torch.kernels.block_attention import (
     paged_block_attention_kernel, row_scalars)
 from repro_torch.kernels.confidence import fused_confidence_kernel
 from repro_torch.kernels.fused_step import fused_step_kernel
+from repro_torch.kernels.quantized_matmul import quantized_matmul_kernel
+from repro_torch.models.quantize import QuantizedTensor
 
 __all__ = ["cached_block_attention", "cached_block_attention_kernel",
            "fused_confidence", "fused_step", "kv_limit_from_pos",
            "paged_block_attention", "paged_block_attention_kernel",
-           "row_scalars"]
+           "quantized_matmul", "row_scalars"]
+
+
+def quantized_matmul(x: torch.Tensor, w: QuantizedTensor, *,
+                     transpose: bool = False) -> torch.Tensor:
+    """x [..., K] @ dequant(w)[(.T)] -> [..., N] in ``x.dtype``.
+
+    ``w.q`` int8 [K, N] (projections, untied head) or, with
+    ``transpose=True``, [N, K] (the tied embed table as the unembed); the
+    weight is dequantized per output channel before the product.
+    """
+    lead = x.shape[:-1]
+    out = quantized_matmul_kernel(x.reshape(-1, x.shape[-1]).contiguous(),
+                                  w.q, w.scale, transpose=transpose)
+    return out.reshape(*lead, out.shape[-1])
 
 
 def fused_confidence(logits: torch.Tensor):
@@ -36,7 +52,17 @@ def fused_step(x: torch.Tensor, w: torch.Tensor, tau: torch.Tensor,
     masked [...]. ``quota > 0`` ranks over the last axis (x must be
     [B, bs, M]: one ranking group per block row). Returns ``(conf, tok,
     above)`` shaped like ``tau``.
+
+    An int8 head (:class:`QuantizedTensor`) needs K6, the reference's
+    ``quantized_fused_step_pallas``, which the port does not have yet
+    (ROADMAP queue 2): it is refused on every device, never dequantized
+    into K3.
     """
+    if isinstance(w, QuantizedTensor):
+        raise NotImplementedError(
+            "the fused epilogue with an int8 head needs K6 "
+            "(quantized_fused_step_pallas), not ported yet (ROADMAP queue "
+            "2); decode int8 params with step_fusion='unfused'")
     lead = x.shape[:-1]
     if quota:
         assert x.ndim == 3, "quota ranks over [B, bs, M] block rows"

@@ -24,6 +24,23 @@ def confidence_ref(logits: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return 1.0 / s, tok
 
 
+def quantized_matmul_ref(x: torch.Tensor, q: torch.Tensor,
+                         scale: torch.Tensor, *,
+                         transpose: bool) -> torch.Tensor:
+    """Plain version of the int8 matmul kernel (K5), the accuracy contract:
+    dequantize first (``q.float() * scale``), round the weight to
+    ``x.dtype``, then contract (scaling after the dot is equal in exact
+    arithmetic but not in floating point).
+
+    x [..., K]; q int8 [K, N] (or [N, K] with ``transpose=True``); scale
+    float32 with the contracted dim kept as size 1. Returns [..., N] in
+    ``x.dtype``: a float32 activation contracts in float32, a bf16 one
+    like the unquantized bf16 product.
+    """
+    w = (q.float() * scale).to(x.dtype)
+    return torch.matmul(x, w.t() if transpose else w)
+
+
 def quota_rank_ref(conf: torch.Tensor, masked: torch.Tensor) -> torch.Tensor:
     """Stable descending rank of ``conf`` within the last axis, masked-out
     entries last: ``argsort(argsort(-conf_m))`` with stable sorts."""

@@ -12,6 +12,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.quantize import QuantizedTensor
+
 # vocabulary columns per f32 upcast of a narrower head (see ``unembed``)
 UNEMBED_CHUNK = 16384
 
@@ -22,8 +24,14 @@ def f32_scale(d: int) -> float:
     return float(np.float32(1.0) / np.sqrt(np.float32(d)))
 
 
-def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x [..., d_in] @ w [d_in, d_out]`` for raw weights."""
+def project(x: torch.Tensor, w) -> torch.Tensor:
+    """``x [..., d_in] @ w [d_in, d_out]``. A :class:`QuantizedTensor`
+    weight goes through the int8 matmul (``ops.quantized_matmul``); a raw
+    weight keeps the plain product, so the bf16 path is unchanged."""
+    if isinstance(w, QuantizedTensor):
+        from repro_torch.kernels import ops as kops  # kernels sit below models
+
+        return kops.quantized_matmul(x, w)
     return torch.matmul(x, w)
 
 
@@ -85,9 +93,13 @@ def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return table[tokens.long()]
 
 
-def unembed(table_or_head: torch.Tensor, x: torch.Tensor, *,
+def unembed(table_or_head, x: torch.Tensor, *,
             transpose: bool) -> torch.Tensor:
     """Logits in float32. ``transpose`` when reusing the [V, M] embed table.
+
+    A :class:`QuantizedTensor` head (int8) goes through the int8 matmul
+    with float32 activations: its dequantized weight stays float32, so
+    the contraction is float32 as on the raw path.
 
     The contraction is float32 as in the reference. A float32 head is used
     as it is. A narrower head (bf16 on the card) is upcast
@@ -98,6 +110,10 @@ def unembed(table_or_head: torch.Tensor, x: torch.Tensor, *,
     """
     xf = x.float()
     w = table_or_head
+    if isinstance(w, QuantizedTensor):
+        from repro_torch.kernels import ops as kops
+
+        return kops.quantized_matmul(xf, w, transpose=transpose)
     if w.dtype == torch.float32:
         return torch.matmul(xf, w.t() if transpose else w)
     V = w.shape[0] if transpose else w.shape[1]

@@ -31,6 +31,7 @@ from repro_torch.models.attention import (attention, cached_block_attend,
 from repro_torch.models.layers import (apply_rope, dense_init, embed,
                                        init_embedding, mlp, project,
                                        rms_norm, unembed)
+from repro_torch.models.quantize import QuantizedTensor
 
 
 def param_dtype(cfg: ModelConfig):
@@ -87,9 +88,17 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
 
 
 def layer_params(layers: dict, l: int) -> dict:
-    """Layer ``l``'s view of the stacked leaves."""
-    return {k: layer_params(v, l) if isinstance(v, dict) else v[l]
-            for k, v in layers.items()}
+    """Layer ``l``'s view of the stacked leaves. A stacked
+    :class:`QuantizedTensor` (``q [L, in, out]``, ``scale [L, 1, out]``)
+    is sliced in both of its tensors."""
+    def at(v):
+        if isinstance(v, dict):
+            return layer_params(v, l)
+        if isinstance(v, QuantizedTensor):
+            return QuantizedTensor(v.q[l], v.scale[l])
+        return v[l]
+
+    return {k: at(v) for k, v in layers.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -142,15 +151,17 @@ def _pre_head(params: dict, cfg: ModelConfig, x: torch.Tensor):
 
 
 def _head(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    x = _pre_head(params, cfg, x)
+    return unembed(head_weights(params, cfg), _pre_head(params, cfg, x),
+                   transpose=cfg.tie_embeddings)
+
+
+def head_weights(params: dict, cfg: ModelConfig):
+    """The unembed matrix: [V, M] (tied, the embed table) or [M, V]; a
+    :class:`QuantizedTensor` for int8 params (a tied model's is
+    ``"head_q"``: its raw ``embed`` stays for the token gathers)."""
     if cfg.tie_embeddings:
-        return unembed(params["embed"], x, transpose=True)
-    return unembed(params["head"], x, transpose=False)
-
-
-def head_weights(params: dict, cfg: ModelConfig) -> torch.Tensor:
-    """The unembed matrix: [V, M] (tied, the embed table) or [M, V]."""
-    return params["embed"] if cfg.tie_embeddings else params["head"]
+        return params.get("head_q", params["embed"])
+    return params["head"]
 
 
 # ---------------------------------------------------------------------------

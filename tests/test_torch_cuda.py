@@ -15,6 +15,8 @@ from repro_torch.kernels.block_attention import (
     paged_block_attention_kernel, row_scalars)
 from repro_torch.kernels.confidence import fused_confidence_kernel
 from repro_torch.kernels.fused_step import fused_step_kernel
+from repro_torch.kernels.quantized_matmul import quantized_matmul_kernel
+from repro_torch.models.quantize import quantize_tensor
 
 pytestmark = pytest.mark.cuda
 
@@ -153,3 +155,32 @@ def test_fused_step_kernel(dev, tied, quota):
                                    group=8 if quota else 0)
     torch.testing.assert_close(conf.cpu(), rc, rtol=1e-5, atol=0)
     assert torch.equal(tok.cpu(), rt) and torch.equal(above.cpu(), ra)
+
+
+@pytest.mark.parametrize("R,K,N", [
+    (1, 128, 128),     # one row; bf16 fills its ring with cp.async
+    (70, 256, 1000),   # ragged row and column tiles
+    (13, 200, 513),    # ragged everything
+    (9, 130, 515),     # no row of q 4-aligned: byte loads
+])
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantized_matmul_kernel(dev, R, K, N, transpose, dtype):
+    """K5 against its plain version: float32 within 1e-5 (the sums run in
+    another order); bf16 within one bf16 step of the output (2^-7
+    relative) plus 1e-4."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = _rand(g, R, K, dev=dev).to(dtype)
+    w = _rand(g, *((N, K) if transpose else (K, N)), dev=dev) * K ** -0.5
+    qt = quantize_tensor(w, axis=-1 if transpose else -2)
+    n0 = quantized_matmul_kernel.launches
+    out = quantized_matmul_kernel(x, qt.q, qt.scale, transpose=transpose)
+    torch.cuda.synchronize()
+    assert quantized_matmul_kernel.launches == n0 + 1
+    assert out.dtype == dtype and out.shape == (R, N)
+    want = ref.quantized_matmul_ref(x, qt.q, qt.scale, transpose=transpose)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+    else:
+        torch.testing.assert_close(out.float(), want.float(), rtol=2 ** -7,
+                                   atol=1e-4)
