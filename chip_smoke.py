@@ -21,10 +21,14 @@ Needs one CUDA device and exits non-zero without one. In order it:
      every row forks, which must decode as private copies of those pages
      do and stay byte-identical; then the int8 path: the weights quantized
      on the card, the same OSDT decode through the unfused epilogue with
-     the int8 matmul kernel (K5) in every projection and the head, and
-     the same Phase 2 on the dequantized weights through the bf16 path;
-     and checks a reduced model's decode (bf16 and int8 weights) on the
-     card against the same decode on the CPU;
+     the int8 matmul kernel (K5) in every projection and the head, the
+     same Phase 2 on the dequantized weights through the bf16 path, and
+     the same Phase 2 through the fused int8 epilogue (K6), which must
+     decode as the unfused int8 run does; then the flash path:
+     ``ops.flash_attention`` (K7) on layer 0's q, k, v of the full forward
+     over the batch; and checks a reduced model's decode (bf16 and int8
+     weights, both epilogues) on the card against the same decode on the
+     CPU;
   4. times each kernel, its plain version and, where one exists, one
      PyTorch call computing the same function (device time: CUDA graph
      replays between CUDA events), beside the least time the card could
@@ -337,6 +341,8 @@ def check_kernels(dev):
             errs["fused_step"] = float((conf - rc).abs().max())
 
     errs["quantized_matmul"] = check_quantized_matmul(gen, dev)
+    errs["quantized_fused_step"] = check_quantized_fused_step(gen, dev)
+    errs["flash_attention"] = check_flash_attention(gen, dev)
     return errs
 
 
@@ -400,6 +406,143 @@ def check_quantized_matmul(gen, dev):
     return main
 
 
+def check_quantized_fused_step(gen, dev):
+    """K6 against its plain version: the main path's step (x [256, 4096]
+    bf16 on LLaDA-8B's untied int8 head), f32 x, a tied head, ragged rows
+    and widths in both layouts, and the quota rule in the decoder's groups
+    of 32 rows. Tolerances as K3's: conf within 1e-3 relative; tokens
+    equal wherever the plain top-2 gap exceeds twice the f32 sum-order
+    bound (M 2^-24 sum|x w| per logit), ``above`` wherever conf is
+    further than 1e-3 relative from tau. Returns the main case's max abs
+    conf error."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_step import \
+        quantized_fused_step_kernel as k6
+    from repro_torch.models.quantize import dequantize, quantize_tensor
+
+    M, V = 4096, 126464
+    R = BATCH * BLOCK
+    cases = [
+        ("main_untied_bf16", R, M, V, False, torch.bfloat16, 0),
+        ("untied_f32", R, M, V, False, torch.float32, 0),
+        ("tied_bf16", R, M, 32000, True, torch.bfloat16, 0),
+        ("ragged_tied_f32", 37, 200, 1001, True, torch.float32, 0),
+        ("ragged_untied_bf16", 37, 200, 513, False, torch.bfloat16, 0),
+        ("quota_untied_bf16", R, M, V, False, torch.bfloat16, 4),
+        ("quota_tied_f32", 4 * BLOCK, 512, 3001, True, torch.float32, 4),
+    ]
+    main = None
+    for name, R6, M6, V6, tied, dt, quota in cases:
+        x = torch.randn((R6, M6), generator=gen, device=dev).to(dt)
+        qt = quantize_tensor(torch.randn((V6, M6) if tied else (M6, V6),
+                                         generator=gen, device=dev)
+                             * M6 ** -0.5, axis=-1 if tied else -2)
+        w = dequantize(qt)
+        logits = x.float() @ (w.t() if tied else w)
+        c0, _ = ref.confidence_ref(logits)
+        tau = c0 * torch.where(torch.rand(R6, generator=gen, device=dev)
+                               < 0.5, 0.8, 1.25)
+        masked = torch.rand(R6, generator=gen, device=dev) < 0.8
+        group = BLOCK if quota else 0
+        conf, tok, above = k6(x, qt.q, qt.scale, tau, masked, tied=tied,
+                              quota=quota, group=group)
+        if quota:
+            g = R6 // group
+            rc, rt, ra = ref.quantized_fused_step_ref(
+                x.reshape(g, group, M6), qt.q, qt.scale,
+                tau.reshape(g, group), masked.reshape(g, group), tied=tied,
+                quota=quota)
+            rc, rt, ra = rc.reshape(-1), rt.reshape(-1), ra.reshape(-1)
+        else:
+            rc, rt, ra = ref.quantized_fused_step_ref(
+                x, qt.q, qt.scale, tau, masked, tied=tied)
+        sabs = x.float().abs() @ (w.t() if tied else w).abs()
+        gap_bound = 2 * M6 * 2.0 ** -24 * sabs.amax(dim=-1)
+        del sabs
+        top2 = logits.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > gap_bound
+        torch.cuda.synchronize()
+        rel = float(((conf - rc).abs() / rc).max())
+        mism = int(((tok != rt) & clear).sum())
+        far = ((rc - tau).abs() > 1e-3 * rc) if not quota else \
+            torch.ones_like(masked)
+        amism = int(((above != ra) & far).sum())
+        log(f"K6 {name}: conf_rel_err={rel:.3e} token_mismatches={mism} "
+            f"(rows with a clear top-2 gap: {int(clear.sum())}/{R6}) "
+            f"above_mismatches={amism}")
+        check(rel <= 1e-3 and mism == 0 and amism == 0, f"K6 {name}")
+        if name == "main_untied_bf16":
+            main = float((conf - rc).abs().max())
+        del x, qt, w, logits
+    torch.cuda.empty_cache()
+    return main
+
+
+def bf16_attention_close(out, want, pv):
+    """Elementwise |out - want| <= 2^-7 (|want| + P|V|): both round the
+    output to bf16 once (at most one step, 2^-7 relative, apart), and the
+    kernel rounds each probability to bf16 before P V, which moves the
+    output by at most 2^-8 P|V|."""
+    err = (out.float() - want.float()).abs()
+    return bool((err <= 2 ** -7 * (want.float().abs() + pv)).all()), \
+        float(err.max())
+
+
+def attention_check(q, k, v, out, *, causal, q_offset):
+    """``out`` (K7's) against the plain version: float32 within 2e-5 (the
+    reference's own kernel sweep), bf16 by ``bf16_attention_close``.
+    Returns (ok, max abs error)."""
+    from repro_torch.kernels import ref
+
+    want = ref.flash_attention_ref(q, k, v, causal=causal,
+                                   q_offset=q_offset)
+    if q.dtype == torch.float32:
+        err = float((out - want).abs().max())
+        return err <= 2e-5, err
+    pv = ref.flash_attention_ref(q.float(), k.float(), v.float().abs(),
+                                 causal=causal, q_offset=q_offset)
+    return bf16_attention_close(out, want, pv)
+
+
+def check_flash_attention(gen, dev):
+    """K7 against its plain version at LLaDA-8B's full-forward attention
+    [8, 32, 256, 128] bf16 (causal and not), then f32 and bf16 edge
+    cases: S < T with q_offset = T - S, ragged S and T, one query, rows
+    that see no key. Returns the main case's max abs error."""
+    from repro_torch.kernels.flash_attention import \
+        flash_attention_kernel as k7
+
+    bf, f32 = torch.bfloat16, torch.float32
+    S = PROMPT + NEW
+    cases = [
+        ("main_full", BATCH, 32, S, S, 128, bf, False, 0),
+        ("main_causal", BATCH, 32, S, S, 128, bf, True, 0),
+        ("suffix_causal", 2, 4, 48, 96, 64, bf, True, 48),
+        ("suffix_causal_f32", 2, 4, 48, 96, 64, f32, True, 48),
+        ("ragged", 1, 2, 33, 65, 16, bf, False, 0),
+        ("ragged_f32", 1, 2, 33, 65, 32, f32, True, 32),
+        ("one_query", 2, 8, 1, 77, 128, bf, True, 76),
+        ("one_query_f32", 2, 8, 1, 77, 128, f32, False, 0),
+        ("no_key_rows", 1, 2, 70, 40, 64, bf, True, -30),
+        ("no_key_rows_f32", 1, 2, 70, 40, 64, f32, True, -30),
+    ]
+    main = None
+    for name, B, H, S7, T7, D, dt, causal, off in cases:
+        q, k, v = (torch.randn((B, H, n, D), generator=gen,
+                               device=dev).to(dt) for n in (S7, T7, T7))
+        out = k7(q, k, v, causal=causal, q_offset=off)
+        torch.cuda.synchronize()
+        ok, err = attention_check(q, k, v, out, causal=causal, q_offset=off)
+        log(f"K7 {name} [{B}, {H}, {S7}/{T7}, {D}] "
+            f"{'bf16' if dt == bf else 'f32'} causal={causal} "
+            f"q_offset={off}: max_abs_err={err:.3e}")
+        check(ok and out.shape == q.shape and out.dtype == dt,
+              f"K7 {name} within its tolerance")
+        if name == "main_full":
+            main = err
+    return main
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
@@ -415,7 +558,7 @@ def read_counts(kernels):
 
 def reduced_reference_check(dev):
     """A reduced LLaDA-8B (f32) decoded through OSDT on the card (kernel
-    paths: fused, unfused, and unfused on int8 weights) and on the CPU
+    paths: fused and unfused, on raw and on int8 weights) and on the CPU
     (plain paths): the tokens must agree (bf16 weights: >= 0.95 of them,
     a float32 near-tie may flip; int8: all) and the calibrated tables to
     1e-4."""
@@ -445,7 +588,7 @@ def reduced_reference_check(dev):
     prompts = np.random.default_rng(SEED).integers(0, 256, (4, 16))
     rates = []
     for fusion, wd in (("fused", "bf16"), ("unfused", "bf16"),
-                       ("unfused", "int8")):
+                       ("unfused", "int8"), ("fused", "int8")):
         res = {}
         dc = dataclasses.replace(dcfg, step_fusion=fusion, weight_dtype=wd)
         for name, params in (("cpu", q_cpu if wd == "int8" else cpu),
@@ -463,8 +606,8 @@ def reduced_reference_check(dev):
         label = f"{'int8 ' if wd == 'int8' else ''}{fusion}"
         log(f"reduced model, {label}: card-vs-CPU token match={match:.4f} "
             f"table max_abs_err={tab_err:.2e}")
-        # int8: tokens must be equal (the K5 float32 path against the
-        # plain float32 product); bf16 keeps its 0.95 floor
+        # int8: tokens must be equal (K5's and K6's float32 products
+        # against the plain float32 product); bf16 keeps its 0.95 floor
         check((match == 1.0 if wd == "int8" else match >= 0.95)
               and tab_err <= 1e-4, f"reduced {label} decode agrees with "
               f"the CPU")
@@ -543,10 +686,13 @@ def main_path(dev, kernels):
     check(unfused_counts["block_attention"] > 0
           and unfused_counts["confidence"] > 0,
           "the unfused run launched K1 and K2")
-    check(all(c > 0 for n, c in counts.items()
-              if n not in ("paged_block_attention", "quantized_matmul")),
+    check(all(counts[n] > 0 for n in ("block_attention", "confidence",
+                                      "fused_step")),
           "every kernel of the dense bf16 path launched")
-    check(counts["quantized_matmul"] == 0, "the bf16 path launched no K5")
+    check(all(counts[n] == 0 for n in ("quantized_matmul",
+                                       "quantized_fused_step",
+                                       "flash_attention")),
+          "the bf16 path launched no K5, K6 or K7")
 
     table = session.table
     log(f"calibrated OSDT table (block x step 0): "
@@ -577,14 +723,17 @@ def main_path(dev, kernels):
         f" GB")
     paged_counts = paged_path(dev, kernels, params, cfg, dcfg, table,
                               prompts, out["phase2_osdt_fused"][0])
-    int8_counts, int8_session = int8_path(dev, kernels, params, cfg, dcfg,
-                                          prompts)
+    int8_counts, int8_sessions = int8_path(dev, kernels, params, cfg, dcfg,
+                                           prompts)
+    flash_counts = flash_path(dev, kernels, params, cfg, prompts)
     # last: the profiler may leave the host slower for what follows it
     profile_phase2(session, prompts, "bf16 fused")
-    profile_phase2(int8_session, prompts, "int8 unfused")
-    del params, session, int8_session
+    for label, s in int8_sessions.items():
+        profile_phase2(s, prompts, label)
+    del params, session, int8_sessions
     torch.cuda.empty_cache()
-    return {n: counts[n] + paged_counts[n] + int8_counts[n] for n in counts}
+    return {n: counts[n] + paged_counts[n] + int8_counts[n] + flash_counts[n]
+            for n in counts}
 
 
 def int8_path(dev, kernels, params, cfg, dcfg, prompts):
@@ -596,8 +745,12 @@ def int8_path(dev, kernels, params, cfg, dcfg, prompts):
     confidence pass K2. Then the same Phase 2 on the dequantized weights
     through the raw bf16 path (projections bf16, the head float32, as
     K5 rounds them): the same function up to the order of the sums, so
-    its token match and NFE are printed beside the int8 run's. Returns
-    the launch counts of the int8 session and the session."""
+    its token match and NFE are printed beside the int8 run's. Last, the
+    same Phase 2 on the int8 weights through the fused epilogue: K6 once
+    a denoising forward in place of the K5 head and K2, which must decode
+    as the unfused int8 run does (NFE equal, token match >= 0.99).
+    Returns the launch counts of both int8 runs and their sessions by
+    label."""
     from repro_torch.core.decoder import make_generate_fn
     from repro_torch.core.osdt import OSDTSession
     from repro_torch.data import tokenizer as tok
@@ -635,8 +788,10 @@ def int8_path(dev, kernels, params, cfg, dcfg, prompts):
           f"{cfg.num_layers} layers + the head)")
     check(counts["confidence"] > 0 and counts["block_attention"] > 0,
           "the int8 session launched K2 and K1")
-    check(counts["fused_step"] == 0 and counts["paged_block_attention"] == 0,
-          "the int8 session ran no K3 and no K4")
+    check(all(counts[n] == 0 for n in ("fused_step", "paged_block_attention",
+                                       "quantized_fused_step",
+                                       "flash_attention")),
+          "the int8 session ran no K3, K4, K6 or K7")
     for phase, (res, secs) in out.items():
         toks = res.tokens
         rows = toks.shape[0]
@@ -679,7 +834,90 @@ def int8_path(dev, kernels, params, cfg, dcfg, prompts):
           "the int8 Phase 2 decodes as the dequantized weights do")
     del dq, res_dq
     torch.cuda.empty_cache()
-    return counts, session
+
+    # the same Phase 2 through the fused int8 epilogue (K6), with the
+    # unfused session's calibrated table
+    fdcfg = dataclasses.replace(qdcfg, step_fusion="fused")
+    fused = OSDTSession(qparams, cfg, fdcfg, tok.MASK_ID, store=session.store,
+                        gen_fn=make_generate_fn(cfg, fdcfg,
+                                                attn_impl="kernel"))
+    reset_counts(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res_f = fused.generate(prompts)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    fcounts = read_counts(kernels)
+    toks = res_f.tokens
+    check(tuple(toks.shape) == (len(prompts), NEW)
+          and not bool((toks == tok.MASK_ID).any())
+          and bool(torch.isfinite(res_f.conf).all()),
+          "int8_phase2_osdt_fused output")
+    # K6 replaces the head product in every denoising forward; the
+    # prefill and the commit forwards still unembed through the K5 head
+    denoise = int(res_f.steps_per_block.sum())
+    match = float((toks == res_q.tokens).float().mean())
+    log(f"int8_phase2_osdt_fused: rows={len(prompts)} NFE={res_f.nfe} "
+        f"steps_per_block={res_f.steps_per_block.tolist()} "
+        f"thr_steps={int(res_f.thr_steps.sum())} wall={secs:.3f}s "
+        f"tokens/s={len(prompts) * NEW / secs:.1f} "
+        f"ms/forward={secs / res_f.nfe * 1e3:.2f}; against the unfused int8 "
+        f"run: token match={match:.4f}, NFE {res_f.nfe} vs {res_q.nfe}")
+    log(f"launches, fused int8 Phase 2 ({res_f.nfe} forwards, {denoise} "
+        f"denoising): {fcounts}")
+    check(fcounts["quantized_fused_step"] == denoise,
+          "K6 launched once a denoising forward")
+    check(fcounts["quantized_matmul"]
+          == 7 * cfg.num_layers * res_f.nfe + (res_f.nfe - denoise),
+          f"K5 launched 7 x {cfg.num_layers} times a forward, plus the head "
+          f"of each prefill and commit forward")
+    check(all(fcounts[n] == 0 for n in ("confidence", "fused_step",
+                                        "paged_block_attention",
+                                        "flash_attention")),
+          "the fused int8 run ran no K2, K3, K4 or K7")
+    check(res_f.nfe == res_q.nfe and match >= 0.99,
+          "the fused int8 Phase 2 decodes as the unfused one does")
+    total = {n: counts[n] + fcounts[n] for n in counts}
+    return total, {"int8 unfused": session, "int8 fused": fused}
+
+
+def flash_path(dev, kernels, params, cfg, prompts):
+    """``ops.flash_attention`` (K7) at the attention of the full forward
+    that the ``cache_mode="none"`` decode runs: layer 0's rotated q, k, v
+    of the main path's batch (the prompt and 128 masked positions, 256
+    tokens), bidirectional as the model attends and causal, each held to
+    the plain version. Returns the launch counts."""
+    from repro_torch.data import tokenizer as tok
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import embed, rms_norm
+
+    tokens = torch.cat([torch.as_tensor(prompts, device=dev),
+                        torch.full((len(prompts), NEW), tok.MASK_ID,
+                                   device=dev)], 1)
+    pos = torch.arange(tokens.shape[1], dtype=torch.int32, device=dev)
+    lp = M.layer_params(params["layers"], 0)
+    h = rms_norm(embed(params["embed"], tokens), lp["ln1"], cfg.norm_eps)
+    q, k, v = (t.transpose(1, 2).contiguous() for t in M._qkv(lp, cfg, h,
+                                                              pos))
+    reset_counts(kernels)
+    outs = {causal: kops.flash_attention(q, k, v, causal=causal)
+            for causal in (False, True)}
+    torch.cuda.synchronize()
+    counts = read_counts(kernels)
+    for causal, out in outs.items():
+        ok, err = attention_check(q, k, v, out, causal=causal, q_offset=0)
+        log(f"flash path: ops.flash_attention causal={causal} on layer 0's "
+            f"q, k, v {list(q.shape)} bf16: max_abs_err={err:.3e}")
+        check(ok and out.shape == q.shape
+              and bool(torch.isfinite(out.float()).all()),
+              f"ops.flash_attention causal={causal} agrees with the plain "
+              f"version")
+    log(f"launches, flash path: {counts}")
+    check(counts["flash_attention"] == 2
+          and sum(counts.values()) == 2, "the flash path launched K7 twice "
+          "and nothing else")
+    return counts
 
 
 def paged_path(dev, kernels, params, cfg, dcfg, table, prompts, dense):
@@ -798,8 +1036,9 @@ def paged_path(dev, kernels, params, cfg, dcfg, table, prompts, dense):
 
 def profile_phase2(session, prompts, label):
     """One more Phase-2 generate under ``torch.profiler``: the device's
-    busy share of the wall time, the kernels that take it (and K5's
-    share, ``qmm_*``), and the host calls that launch and wait."""
+    busy share of the wall time, the kernels that take it (and the shares
+    of K5, ``qmm_*``, and K6, ``qmm_f32<..., FusedStepPartials>``), and
+    the host calls that launch and wait."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -823,11 +1062,14 @@ def profile_phase2(session, prompts, label):
         log(f"profiled Phase 2 {label}: the trace holds no device time "
             "(busy share not measured)")
         return
-    k5 = sum(dev_us(e) for e in kern if "qmm_" in e.key) / 1e6
+    # K5 and K6 share the float32 kernel template, told apart by epilogue
+    k6 = sum(dev_us(e) for e in kern if "FusedStepPartials" in e.key) / 1e6
+    k5 = sum(dev_us(e) for e in kern if "qmm_" in e.key) / 1e6 - k6
     log(f"profiled Phase 2 {label} (under the profiler): NFE={res.nfe} "
         f"wall={wall:.3f}s device busy={busy:.3f}s "
         f"({busy / wall:.1%}), {sum(e.count for e in kern)} kernels; "
-        f"K5 device {k5:.3f}s ({k5 / busy:.1%} of busy)")
+        f"K5 device {k5:.3f}s ({k5 / busy:.1%} of busy), K6 device "
+        f"{k6:.3f}s ({k6 / busy:.1%})")
     for e in kern[:10]:
         log(f"  device {dev_us(e) / 1e3:9.2f} ms x{e.count:6d}  "
             f"{e.key[:100]}")
@@ -988,6 +1230,8 @@ def time_kernels(dev):
     del xs, w
     torch.cuda.empty_cache()
     res.update(time_quantized_matmul(gen, dev))
+    res.update(time_quantized_fused_step(gen, dev))
+    res.update(time_flash_attention(gen, dev))
     for name, r in res.items():
         for key in ("ms", "plain_ms", "library_ms"):
             if r[key] is not None:
@@ -1091,6 +1335,100 @@ def time_quantized_matmul(gen, dev):
     return {"quantized_matmul": rows[f"bf16 R={BATCH * BLOCK} [{M}, {F}]"]}
 
 
+def time_quantized_fused_step(gen, dev):
+    """K6 at the fused int8 path's step: x [256, 4096] bf16 on LLaDA-8B's
+    untied int8 head [4096, 126464] (0.52 GB, two copies rotate so each
+    launch streams it from HBM), beside its plain version and the unfused
+    chain it replaces (the widening of x, K5's float32 head product, K2).
+    No single PyTorch call computes it."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.confidence import fused_confidence_kernel as k2
+    from repro_torch.kernels.fused_step import \
+        quantized_fused_step_kernel as k6
+    from repro_torch.kernels.quantized_matmul import \
+        quantized_matmul_kernel as k5
+    from repro_torch.models.quantize import quantize_tensor
+
+    R, M, V, copies = BATCH * BLOCK, 4096, 126464, 2
+    qts = [quantize_tensor(torch.randn((M, V), generator=gen, device=dev)
+                           * M ** -0.5, axis=-2) for _ in range(copies)]
+    x = torch.randn((R, M), generator=gen, device=dev).to(torch.bfloat16)
+    tau = torch.full((R,), 1e-4, device=dev)
+    masked = torch.ones((R,), dtype=torch.bool, device=dev)
+
+    def run(i):
+        qt = qts[i % copies]
+        return k6(x, qt.q, qt.scale, tau, masked, tied=False)
+
+    def plain(i):
+        qt = qts[i % copies]
+        return ref.quantized_fused_step_ref(x, qt.q, qt.scale, tau, masked,
+                                            tied=False)
+
+    def chain(i):
+        qt = qts[i % copies]
+        return k2(k5(x.float(), qt.q, qt.scale, transpose=False))
+
+    r = dict(ms=cuda_ms(run, 3), plain_ms=cuda_ms(plain, 2), library_ms=None,
+             bound=bound(M * V + 4 * V + R * M * 2 + R * (4 + 1 + 4 + 4 + 1),
+                         2 * R * M * V, F32_OPS_PER_S))
+    unfused = cuda_ms(chain, 3)
+    log(f"time quantized_fused_step R={R} [{M}, {V}] bf16 x (graph replay, "
+        f"median of 5, {copies} head copies): kernel {r['ms'][0]:.4f} ms "
+        f"[{r['ms'][1]:.4f}-{r['ms'][2]:.4f}], plain {r['plain_ms'][0]:.4f} "
+        f"ms, unfused chain (x.float() + K5 f32 head + K2) "
+        f"{unfused[0]:.4f} ms [{unfused[1]:.4f}-{unfused[2]:.4f}], bound "
+        f"{r['bound'][0]:.4f} ms ({r['bound'][1]}, f32 FMA 67 TF/s)")
+    del qts, x
+    torch.cuda.empty_cache()
+    return {"quantized_fused_step": r}
+
+
+def time_flash_attention(gen, dev):
+    """K7 at LLaDA-8B's full-forward attention, [8, 32, 256, 128] bf16
+    (two copies rotate: 134 MB > L2), bidirectional and causal, beside
+    its plain version and ``scaled_dot_product_attention`` (S == T, so
+    SDPA's top-left causal mask is the oracle's bottom-right one). The
+    bidirectional numbers are the kernel's row; the causal ones print."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import \
+        flash_attention_kernel as k7
+
+    B, H, S, D, copies = BATCH, 32, PROMPT + NEW, 128, 2
+    qkv = [[torch.randn((B, H, S, D), generator=gen, device=dev)
+            .to(torch.bfloat16) for _ in range(3)] for _ in range(copies)]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {}
+    for causal in (False, True):
+        def run(i, causal=causal):
+            return k7(*qkv[i % copies], causal=causal)
+
+        def plain(i, causal=causal):
+            return ref.flash_attention_ref(*qkv[i % copies], causal=causal)
+
+        def lib(i, causal=causal):
+            return sdpa(*qkv[i % copies], is_causal=causal)
+
+        with torch.no_grad():
+            err = float((lib(0).float() - run(0).float()).abs().max())
+        check(err < 0.05, "the SDPA yardstick computes the same attention")
+        pairs = S * (S + 1) // 2 if causal else S * S
+        r = dict(ms=cuda_ms(run, 50), plain_ms=cuda_ms(plain, 10),
+                 library_ms=cuda_ms(lib, 50),
+                 bound=bound(4 * B * H * S * D * 2, 4 * B * H * pairs * D,
+                             BF16_OPS_PER_S))
+        log(f"time flash_attention [{B}, {H}, {S}, {D}] bf16 causal={causal}"
+            f" (graph replay, median of 5): kernel {r['ms'][0]:.4f} ms "
+            f"[{r['ms'][1]:.4f}-{r['ms'][2]:.4f}], plain "
+            f"{r['plain_ms'][0]:.4f} ms, SDPA {r['library_ms'][0]:.4f} ms "
+            f"(max |SDPA - K7| {err:.3e}), bound {r['bound'][0]:.4f} ms "
+            f"({r['bound'][1]})")
+        rows[causal] = r
+    del qkv
+    torch.cuda.empty_cache()
+    return {"flash_attention": rows[False]}
+
+
 KERNEL_META = {
     "block_attention": ("src/repro_torch/kernels/csrc/block_attention.cu",
                         "src/repro/kernels/block_attention.py:218"),
@@ -1103,6 +1441,10 @@ KERNEL_META = {
         "src/repro/kernels/block_attention.py:361"),
     "quantized_matmul": ("src/repro_torch/kernels/csrc/quantized_matmul.cu",
                          "src/repro/kernels/quantized_matmul.py:61"),
+    "quantized_fused_step": ("src/repro_torch/kernels/csrc/fused_step.cu",
+                             "src/repro/kernels/fused_step.py:184"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:68"),
 }
 
 
@@ -1116,7 +1458,9 @@ def main() -> int:
     from repro_torch.kernels.block_attention import (
         cached_block_attention_kernel, paged_block_attention_kernel)
     from repro_torch.kernels.confidence import fused_confidence_kernel
-    from repro_torch.kernels.fused_step import fused_step_kernel
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.fused_step import (fused_step_kernel,
+                                                quantized_fused_step_kernel)
     from repro_torch.kernels.quantized_matmul import quantized_matmul_kernel
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1139,7 +1483,9 @@ def main() -> int:
                "confidence": fused_confidence_kernel,
                "fused_step": fused_step_kernel,
                "paged_block_attention": paged_block_attention_kernel,
-               "quantized_matmul": quantized_matmul_kernel}
+               "quantized_matmul": quantized_matmul_kernel,
+               "quantized_fused_step": quantized_fused_step_kernel,
+               "flash_attention": flash_attention_kernel}
     t0 = time.perf_counter()
     errs = check_kernels(dev)
     log(f"kernel checks passed ({time.perf_counter() - t0:.1f}s)")

@@ -122,9 +122,9 @@ def make_generate_fn(cfg: ModelConfig, dcfg: DecodeConfig, *,
     compiled programs on it, and this eager port has no such cache. The
     weights route by type, as in the reference: the ``QuantizedTensor``
     leaves of ``models.quantize.quantize_decode_params`` output take
-    every projection and the head through the int8 matmul. The fused
-    epilogue with int8 params needs K6 and raises. Everything runs on
-    the device that holds ``params``.
+    every projection through the int8 matmul, and the head through it
+    (unfused) or through the int8-head fused step (fused). Everything
+    runs on the device that holds ``params``.
     """
     cache_mode = cache_mode or ("prefix" if use_cache else "none")
     attn_impl = attn_impl or dcfg.attn_impl

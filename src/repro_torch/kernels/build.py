@@ -20,7 +20,8 @@ from typing import Dict, Iterable, List, Tuple
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "_build")
-KERNELS = ("block_attention", "confidence", "fused_step", "quantized_matmul")
+KERNELS = ("block_attention", "confidence", "flash_attention", "fused_step",
+           "quantized_matmul")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -1,11 +1,15 @@
-"""Fused denoising-step epilogue: the CUDA kernel's wrapper (K3).
+"""Fused denoising-step epilogue: the CUDA kernels' wrappers (K3, K6).
 
 ``fused_step_kernel`` is the port of the reference's
 ``fused_step_pallas``: the lm-head product runs tile by tile over the
 vocab straight into the confidence accumulators, so the logits never
-reach device memory, and the kernel emits ``(conf, tok, above)``. Source:
-``csrc/fused_step.cu``. A CPU tensor goes to the plain version
-(``ref.fused_step_ref``); a CUDA tensor launches the kernel or raises.
+reach device memory, and the kernel emits ``(conf, tok, above)``.
+``quantized_fused_step_kernel`` is the port of
+``quantized_fused_step_pallas``: the same epilogue with an int8 head,
+dequantized in float32 as it streams. Source: ``csrc/fused_step.cu``. A
+CPU tensor goes to the plain version (``ref.fused_step_ref``,
+``ref.quantized_fused_step_ref``); a CUDA tensor launches the kernel or
+raises.
 """
 from __future__ import annotations
 
@@ -14,44 +18,43 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import fused_step_ref
+from repro_torch.kernels.ref import fused_step_ref, quantized_fused_step_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "fused_step": (ctypes.c_int, [_P] * 10 + [_I] * 7 + [_P]),
+    "quantized_fused_step": (ctypes.c_int, [_P] * 11 + [_I] * 7 + [_P]),
 }
 
-_VT = 128          # vocab columns per tile (csrc/fused_step.cu kVT)
-_ROWS_FINISH = 128  # rows per finishing block in threshold mode
+_VT = 128          # vocab columns per tile (csrc/fused_step.cu kVT, kFN)
+_ROWS_FINISH = 8    # rows per finishing block in threshold mode (32
+                    # lanes merge each row's partials)
 
 
-def fused_step_kernel(x: torch.Tensor, w: torch.Tensor, tau: torch.Tensor,
-                      masked: torch.Tensor, *, tied: bool, quota: int = 0,
-                      group: int = 0):
-    """x [R, M]; w [V, M] (tied) or [M, V]; tau [R] f32; masked [R] bool
-    -> (conf [R] f32, tok [R] i32, above [R] bool).
-
-    ``quota > 0`` ranks inside each group of ``group`` consecutive rows
-    (one batch row's block) instead of comparing with ``tau``.
-    """
-    R, M = x.shape
+def _check_rows(x, quota: int, group: int) -> None:
+    R = x.shape[0]
     if quota and (group <= 0 or R % group):
         raise ValueError(f"quota ranking needs groups that tile R={R}, "
                          f"got group={group}")
-    if x.device.type == "cpu":
-        if not quota:
-            return fused_step_ref(x, w, tau, masked, tied=tied)
-        g = R // group
-        conf, tok, above = fused_step_ref(
-            x.reshape(g, group, M), w, tau.reshape(g, group),
-            masked.reshape(g, group), tied=tied, quota=quota)
-        return conf.reshape(R), tok.reshape(R), above.reshape(R)
-    if x.device.type != "cuda":
-        raise ValueError(f"no fused step kernel for {x.device}")
-    V = w.shape[0] if tied else w.shape[1]
-    if tuple(w.shape) != ((V, M) if tied else (M, V)) or w.dtype != x.dtype:
-        raise ValueError(f"head {tuple(w.shape)} {w.dtype} does not match "
-                         f"x {tuple(x.shape)} {x.dtype} (tied={tied})")
+
+
+def _plain(fn, x, tau, masked, quota: int, group: int):
+    """``fn(x, tau, masked, quota)`` over [R] rows, or over [R/group,
+    group] ranking groups with ``quota``; returns [R] outputs."""
+    if not quota:
+        return fn(x, tau, masked, 0)
+    R, M = x.shape
+    g = R // group
+    conf, tok, above = fn(x.reshape(g, group, M), tau.reshape(g, group),
+                          masked.reshape(g, group), quota)
+    return conf.reshape(R), tok.reshape(R), above.reshape(R)
+
+
+def _launch(entry: str, x, operands, tau, masked, V: int, tied: bool,
+            quota: int, group: int):
+    """Checks the row operands, allocates the partials and outputs, and
+    calls ``entry`` with the head ``operands`` (pointers) after x."""
+    R, M = x.shape
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"fused step kernel takes bf16 or f32, not {x.dtype}")
     if tau.shape != (R,) or tau.dtype != torch.float32 or \
@@ -59,7 +62,7 @@ def fused_step_kernel(x: torch.Tensor, w: torch.Tensor, tau: torch.Tensor,
         raise ValueError("tau must be [R] float32 and masked [R] bool")
     if quota and group > 1024:
         raise ValueError(f"quota group {group} exceeds one block")
-    tensors = (x, w, tau, masked)
+    tensors = (x, *operands, tau, masked)
     if any(t.device != x.device or not t.is_contiguous() for t in tensors):
         raise ValueError("fused step operands must be contiguous and on one "
                          "device")
@@ -72,16 +75,78 @@ def fused_step_kernel(x: torch.Tensor, w: torch.Tensor, tau: torch.Tensor,
     tok = torch.empty((R,), dtype=torch.int32, device=dev)
     above = torch.empty((R,), dtype=torch.bool, device=dev)
     lib = build.load("fused_step", _SIGNATURES)
-    err = lib.fused_step(
-        x.data_ptr(), w.data_ptr(), tau.data_ptr(), masked.data_ptr(),
-        part_m.data_ptr(), part_s.data_ptr(), part_i.data_ptr(),
-        conf.data_ptr(), tok.data_ptr(), above.data_ptr(), R, M, V,
-        int(tied), int(x.dtype == torch.bfloat16), int(quota),
+    err = getattr(lib, entry)(
+        x.data_ptr(), *(t.data_ptr() for t in operands), tau.data_ptr(),
+        masked.data_ptr(), part_m.data_ptr(), part_s.data_ptr(),
+        part_i.data_ptr(), conf.data_ptr(), tok.data_ptr(), above.data_ptr(),
+        R, M, V, int(tied), int(x.dtype == torch.bfloat16), int(quota),
         group if quota else _ROWS_FINISH,
         torch.cuda.current_stream(dev).cuda_stream)
-    build.check(err, "fused_step")
-    fused_step_kernel.launches += 1
+    build.check(err, entry)
     return conf, tok, above
 
 
+def fused_step_kernel(x: torch.Tensor, w: torch.Tensor, tau: torch.Tensor,
+                      masked: torch.Tensor, *, tied: bool, quota: int = 0,
+                      group: int = 0):
+    """x [R, M]; w [V, M] (tied) or [M, V]; tau [R] f32; masked [R] bool
+    -> (conf [R] f32, tok [R] i32, above [R] bool).
+
+    ``quota > 0`` ranks inside each group of ``group`` consecutive rows
+    (one batch row's block) instead of comparing with ``tau``.
+    """
+    _check_rows(x, quota, group)
+    if x.device.type == "cpu":
+        def plain(x, tau, masked, quota):
+            return fused_step_ref(x, w, tau, masked, tied=tied, quota=quota)
+        return _plain(plain, x, tau, masked, quota, group)
+    if x.device.type != "cuda":
+        raise ValueError(f"no fused step kernel for {x.device}")
+    M = x.shape[1]
+    V = w.shape[0] if tied else w.shape[1]
+    if tuple(w.shape) != ((V, M) if tied else (M, V)) or w.dtype != x.dtype:
+        raise ValueError(f"head {tuple(w.shape)} {w.dtype} does not match "
+                         f"x {tuple(x.shape)} {x.dtype} (tied={tied})")
+    out = _launch("fused_step", x, (w,), tau, masked, V, tied, quota, group)
+    fused_step_kernel.launches += 1
+    return out
+
+
 fused_step_kernel.launches = 0
+
+
+def quantized_fused_step_kernel(x: torch.Tensor, q: torch.Tensor,
+                                scale: torch.Tensor, tau: torch.Tensor,
+                                masked: torch.Tensor, *, tied: bool,
+                                quota: int = 0, group: int = 0):
+    """x [R, M] bf16 or f32; q int8 [V, M] (tied) or [M, V]; scale f32
+    with V elements (one per vocab channel); tau [R] f32; masked [R] bool
+    -> (conf [R] f32, tok [R] i32, above [R] bool), as
+    :func:`fused_step_kernel` with the head ``f32(q) * scale``.
+    """
+    _check_rows(x, quota, group)
+    if x.device.type == "cpu":
+        def plain(x, tau, masked, quota):
+            return quantized_fused_step_ref(x, q, scale, tau, masked,
+                                            tied=tied, quota=quota)
+        return _plain(plain, x, tau, masked, quota, group)
+    if x.device.type != "cuda":
+        raise ValueError(f"no int8 fused step kernel for {x.device}")
+    if q.ndim != 2 or q.dtype != torch.int8:
+        raise ValueError(f"int8 head must be a 2-d int8 tensor, not "
+                         f"{tuple(q.shape)} {q.dtype}")
+    M = x.shape[1]
+    V = q.shape[0] if tied else q.shape[1]
+    if tuple(q.shape) != ((V, M) if tied else (M, V)):
+        raise ValueError(f"int8 head {tuple(q.shape)} {q.dtype} does not "
+                         f"match x {tuple(x.shape)} (tied={tied})")
+    if scale.numel() != V or scale.dtype != torch.float32:
+        raise ValueError(f"scale {tuple(scale.shape)} {scale.dtype} is not "
+                         f"{V} float32 values")
+    out = _launch("quantized_fused_step", x, (q, scale), tau, masked, V,
+                  tied, quota, group)
+    quantized_fused_step_kernel.launches += 1
+    return out
+
+
+quantized_fused_step_kernel.launches = 0

@@ -12,14 +12,16 @@ from repro_torch.kernels.block_attention import (
     cached_block_attention_kernel, kv_limit_from_pos,
     paged_block_attention_kernel, row_scalars)
 from repro_torch.kernels.confidence import fused_confidence_kernel
-from repro_torch.kernels.fused_step import fused_step_kernel
+from repro_torch.kernels.flash_attention import flash_attention_kernel
+from repro_torch.kernels.fused_step import (fused_step_kernel,
+                                            quantized_fused_step_kernel)
 from repro_torch.kernels.quantized_matmul import quantized_matmul_kernel
 from repro_torch.models.quantize import QuantizedTensor
 
 __all__ = ["cached_block_attention", "cached_block_attention_kernel",
-           "fused_confidence", "fused_step", "kv_limit_from_pos",
-           "paged_block_attention", "paged_block_attention_kernel",
-           "quantized_matmul", "row_scalars"]
+           "flash_attention", "fused_confidence", "fused_step",
+           "kv_limit_from_pos", "paged_block_attention",
+           "paged_block_attention_kernel", "quantized_matmul", "row_scalars"]
 
 
 def quantized_matmul(x: torch.Tensor, w: QuantizedTensor, *,
@@ -48,29 +50,40 @@ def fused_step(x: torch.Tensor, w: torch.Tensor, tau: torch.Tensor,
                masked: torch.Tensor, *, tied: bool, quota: int = 0):
     """Fused denoising-step epilogue: unembed + confidence + select.
 
-    x [..., M] final-norm'd hidden; w [V, M] (tied) or [M, V]; tau and
-    masked [...]. ``quota > 0`` ranks over the last axis (x must be
-    [B, bs, M]: one ranking group per block row). Returns ``(conf, tok,
-    above)`` shaped like ``tau``.
-
-    An int8 head (:class:`QuantizedTensor`) needs K6, the reference's
-    ``quantized_fused_step_pallas``, which the port does not have yet
-    (ROADMAP queue 2): it is refused on every device, never dequantized
-    into K3.
+    x [..., M] final-norm'd hidden; w [V, M] (tied) or [M, V], or an int8
+    head (:class:`QuantizedTensor`, dequantized in float32 as it streams:
+    K6); tau and masked [...]. ``quota > 0`` ranks over the last axis (x
+    must be [B, bs, M]: one ranking group per block row). Returns
+    ``(conf, tok, above)`` shaped like ``tau``.
     """
-    if isinstance(w, QuantizedTensor):
-        raise NotImplementedError(
-            "the fused epilogue with an int8 head needs K6 "
-            "(quantized_fused_step_pallas), not ported yet (ROADMAP queue "
-            "2); decode int8 params with step_fusion='unfused'")
     lead = x.shape[:-1]
     if quota:
         assert x.ndim == 3, "quota ranks over [B, bs, M] block rows"
-    conf, tok, above = fused_step_kernel(
-        x.reshape(-1, x.shape[-1]).contiguous(), w,
+    if isinstance(w, QuantizedTensor):
+        fn, head = quantized_fused_step_kernel, (w.q, w.scale)
+    else:
+        fn, head = fused_step_kernel, (w,)
+    conf, tok, above = fn(
+        x.reshape(-1, x.shape[-1]).contiguous(), *head,
         tau.reshape(-1).float().contiguous(), masked.reshape(-1).contiguous(),
         tied=tied, quota=quota, group=lead[-1] if quota else 0)
     return conf.reshape(lead), tok.reshape(lead), above.reshape(lead)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """q [B,H,S,D], k/v [B,H,T,D] (equal heads) -> [B,H,S,D] in q's dtype.
+
+    Follows the reference's oracle (``attention_ref``), not its TPU
+    dispatch: a causal mask is bottom-right aligned, key ``t`` kept for
+    query ``s`` where ``t <= s + T - S``, so the kernel runs with
+    ``q_offset = T - S``. The reference's TPU branch calls its kernel with
+    ``q_offset = 0`` while its CPU branch takes the oracle's mask; the two
+    agree only when S == T.
+    """
+    T, S = k.shape[2], q.shape[2]
+    return flash_attention_kernel(q, k, v, causal=causal,
+                                  q_offset=T - S if causal else 0)
 
 
 def cached_block_attention(q, cache_k, cache_v, block_k, block_v, *,

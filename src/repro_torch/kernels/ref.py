@@ -71,6 +71,54 @@ def fused_step_ref(x: torch.Tensor, w: torch.Tensor, tau: torch.Tensor,
     return conf, tok, above
 
 
+def quantized_fused_step_ref(x: torch.Tensor, q: torch.Tensor,
+                             scale: torch.Tensor, tau: torch.Tensor,
+                             masked: torch.Tensor, *, tied: bool,
+                             quota: int = 0):
+    """Plain version of the int8-head fused step (K6): the head
+    dequantized in float32 with one multiply (``q.float() * scale``, not
+    rounded to ``x.dtype``), then :func:`fused_step_ref`, which contracts
+    ``f32(x)`` against it in float32. This is the unfused int8 epilogue's
+    arithmetic (the float32 int8 matmul, then the confidence pass) up to
+    the order of the sums.
+
+    q int8 [V, M] (tied) or [M, V]; scale float32 with V elements (one per
+    vocab channel), in any shape.
+    """
+    s = scale.float().reshape((-1, 1) if tied else (1, -1))
+    return fused_step_ref(x, q.float() * s, tau, masked, tied=tied,
+                          quota=quota)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool, q_offset: int = 0) -> torch.Tensor:
+    """Plain version of the flash attention kernel (K7).
+
+    q [B,H,S,D], k/v [B,H,T,D] -> [B,H,S,D] in ``q.dtype``, float32 math.
+    ``causal`` keeps key ``t`` for query ``s`` where ``t <= s + q_offset``
+    and fills the rest with -1e30, so a query that sees no key averages
+    all of them, as the softmax of equal scores does.
+    """
+    S, T = q.shape[2], k.shape[2]
+    s = torch.einsum("bhsd,bhtd->bhst", q.float(), k.float()) \
+        * f32_scale(q.shape[-1])
+    if causal:
+        keep = (torch.arange(T, device=q.device)[None, :]
+                <= torch.arange(S, device=q.device)[:, None] + q_offset)
+        s = torch.where(keep, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhst,bhtd->bhsd", p, v.float()).to(q.dtype)
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool) -> torch.Tensor:
+    """q [B,H,S,D], k/v [B,H,T,D] -> [B,H,S,D] (float32 math); the causal
+    mask is bottom-right aligned, ``tril(k=T-S)``: key ``t`` is kept for
+    query ``s`` where ``t <= s + T - S``."""
+    return flash_attention_ref(q, k, v, causal=causal,
+                               q_offset=k.shape[2] - q.shape[2])
+
+
 def as_row(v, B: int, device) -> torch.Tensor:
     """[] / [B] / int -> [B] int32 on ``device``."""
     t = torch.as_tensor(v, dtype=torch.int32, device=device).reshape(-1)

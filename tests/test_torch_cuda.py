@@ -14,7 +14,9 @@ from repro_torch.kernels.block_attention import (
     cached_block_attention_kernel, kv_limit_from_pos,
     paged_block_attention_kernel, row_scalars)
 from repro_torch.kernels.confidence import fused_confidence_kernel
-from repro_torch.kernels.fused_step import fused_step_kernel
+from repro_torch.kernels.flash_attention import flash_attention_kernel
+from repro_torch.kernels.fused_step import (fused_step_kernel,
+                                            quantized_fused_step_kernel)
 from repro_torch.kernels.quantized_matmul import quantized_matmul_kernel
 from repro_torch.models.quantize import quantize_tensor
 
@@ -184,3 +186,71 @@ def test_quantized_matmul_kernel(dev, R, K, N, transpose, dtype):
     else:
         torch.testing.assert_close(out.float(), want.float(), rtol=2 ** -7,
                                    atol=1e-4)
+
+
+@pytest.mark.parametrize("R,M,V", [(32, 96, 1000), (13, 200, 513),
+                                   (256, 512, 3001)])
+@pytest.mark.parametrize("tied,quota", [(True, 0), (False, 0), (False, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantized_fused_step_kernel(dev, R, M, V, tied, quota, dtype):
+    """K6 against its plain version: conf within 1e-5 relative (float32
+    sums in another order; the head is drawn at the model's 1/sqrt(M)
+    scale, so logits stay near 1 where a float32 step is ~1e-7), tokens
+    and selections equal (thresholds sit a factor 2 from every
+    confidence)."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = _rand(g, R, M, dev=dev).to(dtype)
+    w = _rand(g, *((V, M) if tied else (M, V)), dev=dev) * M ** -0.5
+    qt = quantize_tensor(w, axis=-1 if tied else -2)
+    masked = torch.rand(R, generator=g, device=dev) < 0.7
+    rc0, _, _ = ref.quantized_fused_step_ref(
+        x, qt.q, qt.scale, torch.zeros(R, device=dev), masked, tied=tied)
+    tau = torch.where(torch.arange(R, device=dev) % 2 == 0, rc0 * 0.5,
+                      rc0 * 2.0)
+    # quota ranks inside groups of 8 rows, or in one group of all R
+    group = (8 if R % 8 == 0 else R) if quota else 0
+    n0 = quantized_fused_step_kernel.launches
+    conf, tok, above = quantized_fused_step_kernel(
+        x, qt.q, qt.scale, tau, masked, tied=tied, quota=quota, group=group)
+    torch.cuda.synchronize()
+    assert quantized_fused_step_kernel.launches == n0 + 1
+    rc, rt, ra = quantized_fused_step_kernel(
+        x.cpu(), qt.q.cpu(), qt.scale.cpu(), tau.cpu(), masked.cpu(),
+        tied=tied, quota=quota, group=group)
+    torch.testing.assert_close(conf.cpu(), rc, rtol=1e-5, atol=0)
+    assert torch.equal(tok.cpu(), rt) and torch.equal(above.cpu(), ra)
+
+
+@pytest.mark.parametrize("B,H,S,T,D,causal,q_offset", [
+    (1, 2, 64, 64, 32, True, 0),
+    (2, 1, 48, 96, 64, True, 48),     # S < T, bottom-right aligned
+    (1, 1, 33, 65, 16, False, 0),     # ragged S and T
+    (2, 3, 1, 77, 128, True, 76),     # one query
+    (1, 2, 70, 40, 64, True, -30),    # rows that see no key
+    (1, 2, 128, 128, 128, False, 0),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel(dev, B, H, S, T, D, causal, q_offset, dtype):
+    """K7 against its plain version: float32 within 2e-5 (the reference
+    sweep's tolerance); bf16 elementwise within 2^-7 |want| + 2^-7 (P|V|):
+    both round the output to bf16 once (one step apart at most), and the
+    kernel rounds each probability to bf16 before P V, which moves the
+    output by at most 2^-8 (P|V|)."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    q = _rand(g, B, H, S, D, dev=dev).to(dtype)
+    k = _rand(g, B, H, T, D, dev=dev).to(dtype)
+    v = _rand(g, B, H, T, D, dev=dev).to(dtype)
+    n0 = flash_attention_kernel.launches
+    out = flash_attention_kernel(q, k, v, causal=causal, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert flash_attention_kernel.launches == n0 + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    want = ref.flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-5)
+    else:
+        pv = ref.flash_attention_ref(q.float(), k.float(), v.float().abs(),
+                                     causal=causal, q_offset=q_offset)
+        err = (out.float() - want.float()).abs()
+        assert bool((err <= 2 ** -7 * (want.float().abs() + pv)).all()), \
+            float(err.max())

@@ -1,14 +1,15 @@
 """The port's int8 weight-streaming decode against the JAX reference:
 the quantizer (``q`` and ``scale`` bitwise the reference's), the
 conversion of a quantized reference tree, the plain version of the int8
-matmul kernel (K5) against the reference's oracle and its Pallas kernel in
-interpret mode, the quantized layers, model and generate, and OSDT on
-int8 params. CPU, float32, numpy inputs from a seed.
+matmul kernel (K5) and of the int8-head fused step (K6) against the
+reference's oracles and its Pallas kernels in interpret mode, the
+quantized layers, model and generate (both epilogues), and OSDT on int8
+params. CPU, float32, numpy inputs from a seed.
 
 The port's int8 decode is held to the reference's decode on the
 *dequantized* weights, the same function: tokens, NFE and step counts
 equal, floats within 1e-5. It is held the same way to the reference's own
-int8 decode.
+int8 decode, unfused and fused, and the fused one to its own unfused one.
 """
 import dataclasses
 
@@ -23,7 +24,9 @@ from repro.config.registry import get_config as jax_get_config
 from repro.core import osdt as jax_osdt
 from repro.core.decoder import make_generate_fn as jax_make_generate_fn
 from repro.data import tokenizer as tok
+from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels.fused_step import quantized_fused_step_pallas
 from repro.kernels.quantized_matmul import quantized_matmul_pallas
 from repro.models import layers as JL
 from repro.models import model as JM
@@ -34,6 +37,7 @@ from repro_torch.config.registry import get_config
 from repro_torch.core import osdt as torch_osdt
 from repro_torch.core.decoder import make_generate_fn
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.fused_step import quantized_fused_step_kernel
 from repro_torch.kernels.quantized_matmul import quantized_matmul_kernel
 from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
@@ -477,20 +481,174 @@ def test_weight_dtype_normalized_and_refused(models):
         assert torch.equal(a.conf, r.conf)
 
 
-def test_fused_step_refuses_quantized_head(models):
-    """The fused epilogue with an int8 head needs K6: refused on every
-    device, through the entry point and through the decoder."""
-    _, tc, _, tq, _ = models
-    head = tq["head"]
-    for dev in ("cpu", "meta"):
-        x = torch.zeros((2, 4, tc.d_model), device=dev)
-        tau = torch.zeros((2, 4), device=dev)
-        masked = torch.ones((2, 4), dtype=torch.bool, device=dev)
-        w = TQ.QuantizedTensor(head.q.to(dev), head.scale.to(dev))
-        with pytest.raises(NotImplementedError, match="K6"):
-            ops.fused_step(x, w, tau, masked, tied=False)
-    td = DecodeConfig(**DK, weight_dtype="int8", step_fusion="fused")
-    gen = make_generate_fn(tc, td)
-    with pytest.raises(NotImplementedError, match="K6"):
-        gen(tq, np.zeros((1, 8), np.int32),
-            _table(td.num_blocks, td.steps_cap), MASK)
+# ---------------------------------------------------------------------------
+# K6's plain version and the fused int8 epilogue
+# ---------------------------------------------------------------------------
+
+def _k6_case(R, M, V, tied, seed):
+    """x, the int8 head quantized per vocab channel by both quantizers
+    (bitwise equal), and thresholds straddling the confidences."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((R, M)).astype(np.float32)
+    w = rng.standard_normal((V, M) if tied else (M, V)).astype(np.float32)
+    axis = -1 if tied else -2
+    jqt = JQ.quantize_tensor(jnp.asarray(w), axis=axis)
+    tqt = TQ.quantize_tensor(torch.tensor(w), axis=axis)
+    _equal_qt(jqt, tqt)
+    conf0, _ = jref.confidence_ref(jnp.einsum(
+        "rm,vm->rv" if tied else "rm,mv->rv", jnp.asarray(x),
+        JQ.dequantize(jqt)))
+    tau = (np.asarray(conf0) * rng.uniform(0.5, 1.5, R)).astype(np.float32)
+    masked = rng.random(R) < 0.7
+    return x, jqt, tqt, tau, masked
+
+
+@pytest.mark.parametrize("R,M,V", [(13, 200, 1000), (8, 64, 513)])
+@pytest.mark.parametrize("tied", [True, False])
+def test_quantized_fused_step_plain_matches_pallas(R, M, V, tied):
+    """The port's plain K6 against the reference's Pallas kernel in
+    interpret mode and its off-TPU ``ops.fused_step`` (the oracle on the
+    float32-dequantized head): conf at 1e-5, tokens and selections
+    equal."""
+    x, jqt, tqt, tau, masked = _k6_case(R, M, V, tied, R + V)
+    jargs = [jnp.asarray(a) for a in (x, tau, masked)]
+    jc, jt, ja = quantized_fused_step_pallas(
+        jargs[0], jqt.q, jqt.scale, jargs[1], jargs[2], tied=tied,
+        vocab_tile=256, interpret=True)
+    tc, tt, ta = quantized_fused_step_kernel(
+        torch.tensor(x), tqt.q, tqt.scale, torch.tensor(tau),
+        torch.tensor(masked), tied=tied)
+    _close(jc, tc)
+    np.testing.assert_array_equal(np.asarray(jt), _np(tt))
+    np.testing.assert_array_equal(np.asarray(ja), _np(ta))
+    assert 0 < int(ta.sum()) < R
+    oc, ot, oa = jops.fused_step(*jargs[:1], jqt, *jargs[1:], tied=tied)
+    _close(oc, tc)
+    np.testing.assert_array_equal(np.asarray(ot), _np(tt))
+    np.testing.assert_array_equal(np.asarray(oa), _np(ta))
+    # the entry point routes the int8 head to K6 and keeps leading dims
+    ec, et, ea = ops.fused_step(torch.tensor(x)[None], tqt,
+                                torch.tensor(tau)[None],
+                                torch.tensor(masked)[None], tied=tied)
+    assert ec.shape == (1, R)
+    assert torch.equal(ec[0], tc) and torch.equal(et[0], tt) \
+        and torch.equal(ea[0], ta)
+
+
+@pytest.mark.parametrize("tied", [True, False])
+def test_quantized_fused_step_quota_matches_reference(tied):
+    """quota > 0 with an int8 head: the top-quota of each block row's
+    masked confidences, as the reference's Pallas kernel (interpret) and
+    its oracle give it."""
+    B, bs, M, V, quota = 3, 8, 64, 300, 3
+    x, jqt, tqt, _, _ = _k6_case(B * bs, M, V, tied, 11)
+    x = x.reshape(B, bs, M)
+    rng = np.random.default_rng(12)
+    tau = np.zeros((B, bs), np.float32)
+    masked = rng.random((B, bs)) < 0.6
+    jargs = [jnp.asarray(a) for a in (x, tau, masked)]
+    targs = [torch.tensor(a) for a in (x, tau, masked)]
+    tc, tt, ta = ops.fused_step(targs[0], tqt, *targs[1:], tied=tied,
+                                quota=quota)
+    for interpret in (True, False):
+        jc, jt, ja = jops.fused_step(jargs[0], jqt, *jargs[1:], tied=tied,
+                                     quota=quota, interpret=interpret)
+        _close(jc, tc)
+        np.testing.assert_array_equal(np.asarray(jt), _np(tt))
+        np.testing.assert_array_equal(np.asarray(ja), _np(ta))
+    assert int(ta.sum()) == int(np.minimum(masked.sum(-1), quota).sum())
+
+
+def test_quantized_fused_step_plain_is_the_float32_dequant():
+    """The plain K6 contracts f32(x) with the float32 dequantized head
+    (one multiply, not rounded to x's dtype): for bf16 x it equals the
+    plain K3 on x widened to f32 and that head."""
+    rng = np.random.default_rng(13)
+    x = torch.tensor(rng.standard_normal((6, 32)).astype(np.float32)) \
+        .to(torch.bfloat16)
+    qt = TQ.quantize_tensor(
+        torch.tensor(rng.standard_normal((32, 50)).astype(np.float32)), -2)
+    tau = torch.full((6,), 0.03)
+    masked = torch.ones(6, dtype=torch.bool)
+    got = ref.quantized_fused_step_ref(x, qt.q, qt.scale, tau, masked,
+                                       tied=False)
+    want = ref.fused_step_ref(x.float(), TQ.dequantize(qt), tau, masked,
+                              tied=False)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_quantized_fused_step_kernel_refuses_other_devices():
+    meta = dict(device="meta")
+    with pytest.raises(ValueError):
+        quantized_fused_step_kernel(
+            torch.empty((2, 8), **meta),
+            torch.empty((8, 4), dtype=torch.int8, **meta),
+            torch.empty((1, 4), **meta), torch.empty((2,), **meta),
+            torch.empty((2,), dtype=torch.bool, **meta), tied=False)
+
+
+def _generate_pair(models, cache_mode, layout, quota=0, fusions=("fused",)):
+    """The reference's int8 generate (fused epilogue) and the port's int8
+    generates for each of ``fusions``, on the same converted weights."""
+    jc, tc, jq, tq, _ = models
+    jd = JDecodeConfig(**DK, cache_layout=layout, page_size=8)
+    td = DecodeConfig(**DK, cache_layout=layout, page_size=8,
+                      weight_dtype="int8")
+    rng = np.random.default_rng(17)
+    B, P = 2, 16
+    prompt = rng.integers(0, 256, (B, P)).astype(np.int32)
+    table = _table(td.num_blocks, td.steps_cap)
+    jargs = [jnp.asarray(prompt), jnp.asarray(table), jnp.asarray(MASK),
+             None, None]
+    pool = pt = None
+    if layout == "paged":
+        n_log = td.pages_per_seq(_max_len(cache_mode, P))
+        pt = rng.permutation(B * n_log + 2)[:B * n_log] \
+            .reshape(B, n_log).astype(np.int32)
+        shape = (tc.num_layers, B * n_log + 2, 8, tc.num_kv_heads,
+                 tc.resolved_head_dim)
+        pool = np.zeros(shape, np.float32)
+        jargs += [jnp.asarray(pool), jnp.asarray(pool), jnp.asarray(pt)]
+    kw = dict(cache_mode=cache_mode, attn_impl="kernel", use_kernel=True,
+              quota=quota)
+    jkw = dict(kw, attn_impl="auto") if cache_mode == "none" else kw
+    jres = jax_make_generate_fn(jc, jd, weight_dtype="int8",
+                                step_fusion="fused", **jkw)(jq, *jargs)
+    tres = []
+    for fusion in fusions:
+        targs = [prompt, table, MASK, None, None]
+        if layout == "paged":
+            # the port writes its pool in place: a fresh one each run
+            targs += [torch.tensor(pool), torch.tensor(pool),
+                      torch.tensor(pt)]
+        tres.append(make_generate_fn(tc, td, step_fusion=fusion, **kw)(
+            tq, *targs))
+    return jres, tres
+
+
+@pytest.mark.parametrize("cache_mode,layout", [
+    ("prefix", "dense"), ("dual", "dense"), ("none", "dense"),
+    ("prefix", "paged"), ("dual", "paged")])
+def test_generate_fused_int8_matches_reference(models, cache_mode, layout):
+    """The port's fused int8 generate (K6's plain version) equals the
+    reference's fused int8 generate on the same converted weights, and
+    the port's own unfused int8 generate (K5's float32 head, then the
+    confidence pass): tokens, NFE and steps equal, conf within 1e-5."""
+    jres, (fused, unfused) = _generate_pair(
+        models, cache_mode, layout, fusions=("fused", "unfused"))
+    _assert_same(jres, fused)
+    assert fused.nfe == unfused.nfe
+    for f in EXACT:
+        assert torch.equal(getattr(fused, f), getattr(unfused, f)), f
+    torch.testing.assert_close(fused.conf, unfused.conf, rtol=0, atol=ATOL)
+    assert fused.steps_per_block.max() > 1 and fused.thr_steps.sum() > 0
+
+
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+def test_generate_fused_int8_quota_matches_reference(models, layout):
+    """The fixed-step baseline (quota 2) through the fused int8 epilogue:
+    the in-kernel top-k ranking against the reference's."""
+    jres, (fused,) = _generate_pair(models, "prefix", layout, quota=2)
+    _assert_same(jres, fused)
+    assert int(fused.steps_per_block.max()) == DK["block_size"] // 2
