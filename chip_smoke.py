@@ -14,7 +14,13 @@ Needs one CUDA device and exits non-zero without one. In order it:
      batch) of LLaDA-8B at full width and depth with random weights from a
      seed, through ``OSDTSession`` with the block attention and fused step
      kernels, then the same batch through the unfused epilogue with the
-     confidence kernel, counting every kernel launch; then the paged path:
+     confidence kernel, counting every kernel launch; then, outside the
+     counts, the teacher-forced replay (the same fused Phase 2 driven by
+     the plain block attention, the kernel run on the same inputs and
+     cache at every forward: each forward's conf and argmax must follow,
+     and the same replay under three emulated kernel faults must fail)
+     and a report, not a gate, of the Phase-2 NFE with the kernel and with
+     the plain attention over six prompt batches; then the paged path:
      the same Phase-2 decode over a page pool through a permuted page table
      (K4 + K3), whose tokens, NFE and steps must equal the dense run's, and
      a 64-token system prefix prefilled once into allocator pages that
@@ -721,6 +727,9 @@ def main_path(dev, kernels):
     log(f"fused vs unfused Phase-2 token match rate: {match:.4f}")
     log(f"peak device memory: {torch.cuda.max_memory_allocated() / 1e9:.2f}"
         f" GB")
+    # compare-only phases: their launches are outside every path's count
+    replay_path(params, cfg, dcfg, session.store, prompts)
+    nfe_report(params, cfg, dcfg, session.store)
     paged_counts = paged_path(dev, kernels, params, cfg, dcfg, table,
                               prompts, out["phase2_osdt_fused"][0])
     int8_counts, int8_sessions = int8_path(dev, kernels, params, cfg, dcfg,
@@ -1034,11 +1043,216 @@ def paged_path(dev, kernels, params, cfg, dcfg, table, prompts, dense):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# teacher-forced replay: the block attention kernel against the plain
+# attention at every forward of one decode that the plain one drives
+# ---------------------------------------------------------------------------
+
+# The replay's bars, held by the kernel on every compared forward: its max
+# |conf difference| within REPLAY_CONF_SHARE of the forward's max conf,
+# and its argmax agreement, pooled over every compared position, at
+# least REPLAY_ARGMAX_AGREE. The plain path that drives the decode
+# (``attn_impl="dense"``) rounds its normalised probabilities to bf16
+# before P V, while the kernel, like its plain version, keeps P nearly in
+# f32; the plain chunked attention (``attn_impl="flash"``, f32 P, another
+# sum order) runs beside it as a reference that is printed, not gated,
+# and shows how far a path without the kernel moves on the same forwards.
+REPLAY_CONF_SHARE, REPLAY_ARGMAX_AGREE = 0.05, 0.95
+REPLAY_CHECKS = ("kernel", "flash")  # gated, printed reference
+
+
+def _with_scalar(scalars, row, value):
+    """``scalars`` [5, B] with one geometry row replaced."""
+    s = scalars.clone()
+    s[row] = value
+    return s
+
+
+# Kernel faults the replay must reject, each emulated around K1's wrapper
+# (``kernels.ops.cached_block_attention_kernel``) as a kernel with that
+# fault would compute: a softmax scale 10% high, the fresh block hidden
+# as if its slot were the sentinel, and the last live cache slot dropped
+# (``kv_limit`` one short).
+REPLAY_FAULTS = {
+    "scale_10pct_high": lambda f: (
+        lambda q, *a, **k: f(q * 1.1, *a, **k)),
+    "fresh_block_hidden": lambda f: (
+        lambda q, ck, cv, bk, bv, pos, s, **k: f(
+            q, ck, cv, bk, bv, pos, _with_scalar(s, 0, ck.shape[1]), **k)),
+    "last_slot_dropped": lambda f: (
+        lambda q, ck, cv, bk, bv, pos, s, **k: f(
+            q, ck, cv, bk, bv, pos, _with_scalar(s, 4, s[4] - 1), **k)),
+}
+
+
+def replay_compare(out, alt, masked, head=None, tied=False):
+    """(conf, argmax) of two outputs of one forward on the same inputs:
+    ``out`` [B, bs, V] logits, or final hidden [B, bs, d] when ``head``
+    (the unembed matrix) is given, as the fused epilogue takes them. Read
+    over the masked positions (every position when none is masked, as in
+    a commit forward). Returns the max |conf difference|, its share of
+    ``out``'s max conf there, the argmax agreement and the count."""
+    from repro_torch.kernels.ref import confidence_ref
+    from repro_torch.models.layers import unembed
+
+    def conf_tok(x):
+        logits = x if head is None else unembed(head, x, transpose=tied)
+        return confidence_ref(logits.reshape(-1, logits.shape[-1]))
+
+    c0, t0 = conf_tok(out)
+    c1, t1 = conf_tok(alt)
+    sel = masked.reshape(-1)
+    if not bool(sel.any()):
+        sel = torch.ones_like(sel)
+    dmax = float((c1 - c0).abs()[sel].max())
+    return dict(max_dconf=dmax, share=dmax / float(c0[sel].max()),
+                agree=float((t0 == t1)[sel].float().mean()),
+                n=int(sel.sum()))
+
+
+def disagreement(rows, impl) -> float:
+    """Argmax disagreement of ``impl`` over every compared position."""
+    n = sum(r[impl]["n"] for r in rows)
+    return sum((1 - r[impl]["agree"]) * r[impl]["n"] for r in rows) / n
+
+
+def replay_ok(rows) -> bool:
+    """The replay's gate (the bars above) on the kernel's rows."""
+    return bool(rows) and all(
+        r["kernel"]["share"] <= REPLAY_CONF_SHARE for r in rows) and (
+        1 - disagreement(rows, "kernel") >= REPLAY_ARGMAX_AGREE)
+
+
+class TeacherForced:
+    """While active, every ``models.model.block_step`` first runs with
+    each ``attn_impl`` of ``REPLAY_CHECKS`` and ``write=False`` on the caller's
+    inputs and cache, then as the caller asked, whose output (and cache)
+    drives the decode. Each forward adds one row to ``rows``: its
+    ``kind`` ("step" for a denoising forward, "commit" for one that
+    writes the cache) and, under each checked impl, its
+    :func:`replay_compare` against the driving output."""
+
+    def __init__(self, params, cfg):
+        from repro_torch.models import model as M
+
+        self.M, self.cfg = M, cfg
+        self.head = M.head_weights(params, cfg)
+        self.rows = []
+
+    def __enter__(self):
+        self.orig = self.M.block_step
+        self.M.block_step = self.step
+        return self
+
+    def __exit__(self, *exc):
+        self.M.block_step = self.orig
+
+    def step(self, params, cfg, block_tokens, block_start, cache, **kw):
+        alts = {impl: self.orig(params, cfg, block_tokens, block_start,
+                                cache, **dict(kw, attn_impl=impl,
+                                              write=False))[0]
+                for impl in REPLAY_CHECKS}
+        out, cache = self.orig(params, cfg, block_tokens, block_start,
+                               cache, **kw)
+        head = None if kw.get("head", True) else self.head
+        masked = block_tokens == self.cfg.mask_token_id
+        row = {impl: replay_compare(out, alt, masked, head=head,
+                                    tied=self.cfg.tie_embeddings)
+               for impl, alt in alts.items()}
+        row["kind"] = "commit" if kw.get("write") else "step"
+        self.rows.append(row)
+        return out, cache
+
+
+def replay_rows(params, cfg, dcfg, store, prompts):
+    """One OSDT decode of ``prompts`` on the calibrated ``store``, driven by
+    the plain block attention, with every impl of ``REPLAY_CHECKS`` run on
+    the same inputs and cache at each forward: (result, replay rows).
+    Unlike the tokens of two free-running decodes, this comparison does
+    not compound: each forward sees the same inputs on every side."""
+    from repro_torch.core.decoder import make_generate_fn
+    from repro_torch.core.osdt import OSDTSession
+    from repro_torch.data import tokenizer as tok
+
+    s = OSDTSession(params, cfg, dcfg, tok.MASK_ID, store=store,
+                    gen_fn=make_generate_fn(cfg, dcfg, attn_impl="dense"))
+    with TeacherForced(params, cfg) as tf:
+        res = s.generate(prompts)
+    return res, tf.rows
+
+
+def replay_path(params, cfg, dcfg, store, prompts):
+    """The replay of the main path's bf16 fused Phase 2 (its batch, its
+    calibrated table), gated by :func:`replay_ok`; then the same replay
+    under each emulated fault of ``REPLAY_FAULTS``, which the gate must
+    reject."""
+    from repro_torch.kernels import ops as kops
+
+    res, rows = replay_rows(params, cfg, dcfg, store, prompts)
+    torch.cuda.synchronize()
+    for i, r in enumerate(rows):
+        log(f"replay forward {i} ({r['kind']}, {r['kernel']['n']} "
+            f"positions): " + "; ".join(
+                f"{impl} max |dconf| {r[impl]['max_dconf']:.3e} "
+                f"({r[impl]['share']:.2%} of max conf), argmax agreement "
+                f"{r[impl]['agree']:.4f}" for impl in REPLAY_CHECKS))
+    for impl in REPLAY_CHECKS:
+        log(f"teacher-forced replay, {impl} against the plain dense "
+            f"attention driving the bf16 fused Phase 2 (NFE {res.nfe}, "
+            f"{len(rows)} block-step forwards): worst share "
+            f"{max(r[impl]['share'] for r in rows):.2%}, lowest argmax "
+            f"agreement {min(r[impl]['agree'] for r in rows):.4f}, "
+            f"pooled agreement {1 - disagreement(rows, impl):.4f} over "
+            f"{sum(r[impl]['n'] for r in rows)} positions")
+    check(replay_ok(rows), "teacher-forced replay: the kernel's conf share "
+          f"<= {REPLAY_CONF_SHARE:.0%} at every forward and its pooled "
+          f"argmax agreement >= {REPLAY_ARGMAX_AGREE}")
+    orig = kops.cached_block_attention_kernel
+    for name, fault in REPLAY_FAULTS.items():
+        kops.cached_block_attention_kernel = fault(orig)
+        try:
+            _, rows = replay_rows(params, cfg, dcfg, store, prompts)
+        finally:
+            kops.cached_block_attention_kernel = orig
+        caught = not replay_ok(rows)
+        log(f"replay under the emulated fault {name}: worst share "
+            f"{max(r['kernel']['share'] for r in rows):.2%}, pooled "
+            f"agreement {1 - disagreement(rows, 'kernel'):.4f}, "
+            f"rejected: {caught}")
+        check(caught, f"the replay's gate rejects the fault {name}")
+
+
+def nfe_report(params, cfg, dcfg, store, batches: int = 6):
+    """Not a gate: the bf16 fused Phase-2 NFE with the kernel and with the
+    plain attention, on the calibrated table, over ``batches`` prompt
+    batches from seeds SEED .. SEED + batches - 1. On random weights every
+    confidence sits near its threshold, so any change of rounding flips
+    decisions and a single batch's NFE moves either way."""
+    from repro_torch.core.decoder import make_generate_fn
+    from repro_torch.core.osdt import OSDTSession
+    from repro_torch.data import tokenizer as tok
+
+    nfe = {"kernel": [], "dense": []}
+    for k in range(batches):
+        rows = np.random.default_rng(SEED + k).integers(0, 256,
+                                                        (BATCH, PROMPT))
+        for impl in nfe:
+            gen = make_generate_fn(cfg, dcfg, attn_impl=impl)
+            s = OSDTSession(params, cfg, dcfg, tok.MASK_ID, store=store,
+                            gen_fn=gen)
+            nfe[impl].append(int(s.generate(rows).nfe))
+        log(f"NFE report, seed {SEED + k}: kernel {nfe['kernel'][-1]}, "
+            f"plain {nfe['dense'][-1]}")
+    log(f"NFE report over {batches} batches: kernel mean "
+        f"{np.mean(nfe['kernel']):.2f} {nfe['kernel']}, plain mean "
+        f"{np.mean(nfe['dense']):.2f} {nfe['dense']}")
+
+
 def profile_phase2(session, prompts, label):
     """One more Phase-2 generate under ``torch.profiler``: the device's
     busy share of the wall time, the kernels that take it (and the shares
-    of K5, ``qmm_*``, and K6, ``qmm_f32<..., FusedStepPartials>``), and
-    the host calls that launch and wait."""
+    of K5, ``qmm_*``, K6, ``qmm_f32<..., FusedStepPartials>``, and K1/K4,
+    ``block_attn*``), and the host calls that launch and wait."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1065,11 +1279,14 @@ def profile_phase2(session, prompts, label):
     # K5 and K6 share the float32 kernel template, told apart by epilogue
     k6 = sum(dev_us(e) for e in kern if "FusedStepPartials" in e.key) / 1e6
     k5 = sum(dev_us(e) for e in kern if "qmm_" in e.key) / 1e6 - k6
+    k1 = [e for e in kern if "block_attn" in e.key]
+    k1_s = sum(dev_us(e) for e in k1) / 1e6
     log(f"profiled Phase 2 {label} (under the profiler): NFE={res.nfe} "
         f"wall={wall:.3f}s device busy={busy:.3f}s "
         f"({busy / wall:.1%}), {sum(e.count for e in kern)} kernels; "
         f"K5 device {k5:.3f}s ({k5 / busy:.1%} of busy), K6 device "
-        f"{k6:.3f}s ({k6 / busy:.1%})")
+        f"{k6:.3f}s ({k6 / busy:.1%}); K1/K4 device {k1_s:.4f}s "
+        f"({k1_s / busy:.1%}) over {sum(e.count for e in k1)} launches")
     for e in kern[:10]:
         log(f"  device {dev_us(e) / 1e3:9.2f} ms x{e.count:6d}  "
             f"{e.key[:100]}")

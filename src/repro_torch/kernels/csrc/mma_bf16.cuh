@@ -1,6 +1,7 @@
-// bf16 tensor-core building blocks shared by the int8 matmul kernel (K5)
-// and the flash attention kernel (K7): mma.sync m16n8k16 (bf16 x bf16 ->
-// f32) and its fragment loads from shared memory.
+// bf16 tensor-core building blocks shared by the int8 matmul kernel (K5),
+// the flash attention kernel (K7) and the block attention kernels (K1,
+// K4): mma.sync m16n8k16 (bf16 x bf16 -> f32), its fragment loads from
+// shared memory, and the cp.async copies that fill shared memory.
 //
 // Fragments of one warp (g = lane / 4, t = lane % 4): A (16 x 16, row
 // major) a0 = A[g][2t, 2t+1], a1 = A[g+8][2t, 2t+1], a2 = A[g][2t+8, 2t+9],
@@ -44,4 +45,65 @@ __device__ __forceinline__ void ldmatrix_b_trans(uint32_t (&b)[2],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// the B fragments of two k16 steps and 8 columns from a [col][k] tile
+// (e.g. a K tile [key][d] for S = Q K^T): lane l passes the address of
+// column (l & 7) at k offset 8 (l >> 3) from the first step's start;
+// b[0], b[1] are the first step's b0, b1 and b[2], b[3] the second's
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&b)[4],
+                                            const __nv_bfloat16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
+      : "r"(smem_addr(p)));
+}
+
+// the k16 x n8 B fragments of two neighbouring 8-column chunks from a
+// [k][col] tile (e.g. a V tile [key][d] for O += P V): lane l passes the
+// address of row (l & 7) + 8 ((l >> 3) & 1) at column offset 8 (l >> 4)
+// from the first chunk's start; b[0], b[1] serve the first chunk and
+// b[2], b[3] the second
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&b)[4],
+                                                  const __nv_bfloat16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
+      : "r"(smem_addr(p)));
+}
+
+// the pair (a, b) as two bf16 pairs, t[0] + t[1]: t[0] = bf16(x) and
+// t[1] = bf16(x - bf16(x)) (a difference f32 holds exactly) keep ~16
+// significant bits of x where one bf16 rounding keeps 8, so two
+// products, one with each term, carry an f32 operand through a bf16 mma
+// that far
+__device__ __forceinline__ void split_bf16(uint32_t (&t)[2], float a,
+                                           float b) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+    t[i] = *reinterpret_cast<const uint32_t*>(&v);
+    a -= __low2float(v);
+    b -= __high2float(v);
+  }
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled (nothing read
+// from `src`) when !valid. `src` must be 16-byte aligned.
+__device__ __forceinline__ void cp_async_zfill16(void* dst, const void* src,
+                                                 bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit_group() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }

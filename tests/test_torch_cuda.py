@@ -4,7 +4,9 @@
 
 Tolerances: float32 inputs agree to 1e-5 (the kernels sum in another
 order); tokens and selections are equal, since the inputs here keep the
-top two logits and every confidence well apart from its threshold.
+top two logits and every confidence well apart from its threshold. The
+bf16 block attention cases hold the tensor-core body within one bf16
+step of the plain version's output plus 1e-4 (``chip_smoke.bf16_close``).
 """
 import pytest
 import torch
@@ -36,18 +38,24 @@ def _rand(gen, *shape, dev):
     return torch.randn(shape, generator=gen, device=dev)
 
 
-@pytest.mark.parametrize("B,bs,H,Kh,D,T,fill,slot,exc,window", [
-    (2, 8, 8, 2, 64, 100, 40, 40, None, 0),     # GQA 4, ragged T
-    (2, 32, 4, 4, 128, 96, 64, 64, (16, 32), 0),  # dual exclude
-    (1, 8, 4, 4, 32, 64, 40, 64, None, 0),      # sentinel slot
-    (1, 8, 4, 4, 32, 64, 40, 40, None, 12),     # window
-])
-def test_block_attention_kernel(dev, B, bs, H, Kh, D, T, fill, slot, exc,
-                                window):
+def _bf16_close(out, want):
+    """|out - want| <= 2^-7 |want| + 1e-4 elementwise: the kernel and the
+    plain version sum in another order in f32 and each rounds once to
+    bf16, so they may differ by one bf16 step (2^-7 relative)."""
+    err = (out.float() - want.float()).abs()
+    assert bool((err <= want.float().abs() * 2 ** -7 + 1e-4).all()), \
+        float(err.max())
+
+
+def _block_attention_case(dev, dtype, B, bs, H, Kh, D, T, fill, slot, exc,
+                          window):
+    """K1 once on seeded inputs in ``dtype``: (kernel out, plain out)."""
     g = torch.Generator(device=dev).manual_seed(0)
-    q = _rand(g, B, bs, H, D, dev=dev)
-    ck, cv = _rand(g, B, T, Kh, D, dev=dev), _rand(g, B, T, Kh, D, dev=dev)
-    bk, bv = _rand(g, B, bs, Kh, D, dev=dev), _rand(g, B, bs, Kh, D, dev=dev)
+    q = _rand(g, B, bs, H, D, dev=dev).to(dtype)
+    ck = _rand(g, B, T, Kh, D, dev=dev).to(dtype)
+    cv = _rand(g, B, T, Kh, D, dev=dev).to(dtype)
+    bk = _rand(g, B, bs, Kh, D, dev=dev).to(dtype)
+    bv = _rand(g, B, bs, Kh, D, dev=dev).to(dtype)
     ar = torch.arange(T, device=dev)
     pos = torch.where(ar < fill, ar, -1).to(torch.int32)
     kw = dict(slot=slot, block_start=fill, window=window)
@@ -62,8 +70,39 @@ def test_block_attention_kernel(dev, B, bs, H, Kh, D, T, fill, slot, exc,
                                         exclude_len=exc_len, window=window)
     torch.cuda.synchronize()
     assert cached_block_attention_kernel.launches == n0 + 1
-    want = ref.cached_block_attention_ref(q, ck, cv, bk, bv, pos, **kw)
+    assert out.dtype == dtype
+    return out, ref.cached_block_attention_ref(q, ck, cv, bk, bv, pos, **kw)
+
+
+@pytest.mark.parametrize("B,bs,H,Kh,D,T,fill,slot,exc,window", [
+    (2, 8, 8, 2, 64, 100, 40, 40, None, 0),     # GQA 4, ragged T
+    (2, 32, 4, 4, 128, 96, 64, 64, (16, 32), 0),  # dual exclude
+    (1, 8, 4, 4, 32, 64, 40, 64, None, 0),      # sentinel slot
+    (1, 8, 4, 4, 32, 64, 40, 40, None, 12),     # window
+])
+def test_block_attention_kernel(dev, B, bs, H, Kh, D, T, fill, slot, exc,
+                                window):
+    out, want = _block_attention_case(dev, torch.float32, B, bs, H, Kh, D,
+                                      T, fill, slot, exc, window)
     torch.testing.assert_close(out, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,bs,H,Kh,D,T,fill,slot,exc,window", [
+    (2, 8, 8, 2, 64, 100, 40, 40, None, 0),     # GQA 4, ragged T
+    (2, 32, 4, 4, 128, 96, 64, 64, (16, 32), 0),  # dual exclude
+    (1, 8, 4, 4, 32, 64, 40, 64, None, 0),      # sentinel slot
+    (1, 8, 4, 4, 32, 64, 40, 40, None, 12),     # window
+    (2, 16, 4, 4, 32, 200, 150, 150, None, 0),  # D 32, several tiles
+    (2, 32, 8, 4, 64, 256, 192, 192, None, 0),  # D 64, GQA 2, full tiles
+    (2, 8, 4, 4, 256, 72, 50, 50, None, 0),     # D 256: the 2-stage ring
+    (3, 40, 6, 2, 96, 130, 70, 70, None, 0),    # D 96, bs past one tile
+])
+def test_block_attention_kernel_bf16(dev, B, bs, H, Kh, D, T, fill, slot,
+                                     exc, window):
+    """The tensor-core body against the plain version in bf16."""
+    out, want = _block_attention_case(dev, torch.bfloat16, B, bs, H, Kh, D,
+                                      T, fill, slot, exc, window)
+    _bf16_close(out, want)
 
 
 def _paged_inputs(g, dev, B, bs, H, Kh, D, T, ps, spare=3):
@@ -78,16 +117,14 @@ def _paged_inputs(g, dev, B, bs, H, Kh, D, T, ps, spare=3):
             _rand(g, B, bs, Kh, D, dev=dev), pt)
 
 
-@pytest.mark.parametrize("B,bs,H,Kh,D,T,ps,fill,exc,window,hole,dead", [
-    (2, 8, 8, 2, 64, 100, 16, 40, None, 0, True, False),  # GQA, ragged T
-    (2, 32, 4, 4, 128, 96, 16, 64, (16, 32), 0, False, False),  # exclude
-    (1, 8, 4, 4, 32, 64, 16, 40, None, 12, False, False),  # window
-    (3, 8, 4, 4, 64, 90, 5, 60, None, 0, True, True),  # ps 5, retired row
-])
-def test_paged_block_attention_kernel(dev, B, bs, H, Kh, D, T, ps, fill,
-                                      exc, window, hole, dead):
+def _paged_block_attention_case(dev, dtype, B, bs, H, Kh, D, T, ps, fill,
+                                exc, window, hole, dead):
+    """K4 once on seeded inputs in ``dtype`` over a random page table,
+    with an unmapped page inside the valid extent (``hole``) and a
+    retired first row (``dead``): (kernel out, plain out)."""
     g = torch.Generator(device=dev).manual_seed(3)
     q, pk, pv, bk, bv, pt = _paged_inputs(g, dev, B, bs, H, Kh, D, T, ps)
+    q, pk, pv, bk, bv = (x.to(dtype) for x in (q, pk, pv, bk, bv))
     if hole:
         pt[-1, 1] = -1  # an unmapped page inside the valid extent
     ar = torch.arange(T, device=dev)
@@ -103,11 +140,42 @@ def test_paged_block_attention_kernel(dev, B, bs, H, Kh, D, T, ps, fill,
                                        exclude_len=exc_len, window=window)
     torch.cuda.synchronize()
     assert paged_block_attention_kernel.launches == n0 + 1
-    want = ref.paged_block_attention_ref(
+    assert out.dtype == dtype
+    return out, ref.paged_block_attention_ref(
         q, pk, pv, bk, bv, pos, pt, slot=fill, block_start=fill,
         kv_limit=lim, exclude_start=exc_start, exclude_len=exc_len,
         window=window)
+
+
+@pytest.mark.parametrize("B,bs,H,Kh,D,T,ps,fill,exc,window,hole,dead", [
+    (2, 8, 8, 2, 64, 100, 16, 40, None, 0, True, False),  # GQA, ragged T
+    (2, 32, 4, 4, 128, 96, 16, 64, (16, 32), 0, False, False),  # exclude
+    (1, 8, 4, 4, 32, 64, 16, 40, None, 12, False, False),  # window
+    (3, 8, 4, 4, 64, 90, 5, 60, None, 0, True, True),  # ps 5, retired row
+])
+def test_paged_block_attention_kernel(dev, B, bs, H, Kh, D, T, ps, fill,
+                                      exc, window, hole, dead):
+    out, want = _paged_block_attention_case(
+        dev, torch.float32, B, bs, H, Kh, D, T, ps, fill, exc, window, hole,
+        dead)
     torch.testing.assert_close(out, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,bs,H,Kh,D,T,ps,fill,exc,window,hole,dead", [
+    (2, 8, 8, 2, 64, 100, 16, 40, None, 0, True, False),  # GQA, ragged T
+    (2, 32, 4, 4, 128, 96, 16, 64, (16, 32), 0, False, False),  # exclude
+    (1, 8, 4, 4, 32, 64, 16, 40, None, 12, False, False),  # window
+    (3, 8, 4, 4, 64, 90, 5, 60, None, 0, True, True),  # ps 5, retired row
+    (2, 16, 4, 4, 32, 200, 7, 150, None, 0, True, False),  # D 32, ps 7
+    (2, 8, 4, 4, 256, 72, 16, 50, None, 0, True, False),  # D 256
+])
+def test_paged_block_attention_kernel_bf16(dev, B, bs, H, Kh, D, T, ps,
+                                           fill, exc, window, hole, dead):
+    """The tensor-core body over a page pool against the plain version."""
+    out, want = _paged_block_attention_case(
+        dev, torch.bfloat16, B, bs, H, Kh, D, T, ps, fill, exc, window,
+        hole, dead)
+    _bf16_close(out, want)
 
 
 def test_paged_kernel_is_dense_kernel_on_gathered_view(dev):

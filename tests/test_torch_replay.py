@@ -1,0 +1,163 @@
+"""The teacher-forced replay of ``chip_smoke.py`` on the CPU.
+
+The replay judges the block attention kernel on the main path: one OSDT
+decode is driven by the plain attention (``attn_impl="dense"``), and at
+every block-step forward the kernel path (``attn_impl="kernel"``, gated)
+and the plain chunked attention (``attn_impl="flash"``, printed only) run
+on the same inputs and cache; each one's (conf, argmax) is compared with
+the driving forward's. Here, on a reduced LLaDA-8B in float32, the kernel
+path's wrapper takes its plain version (``ref.cached_block_attention_ref``),
+which is bitwise the dense path's attention: the replay must report zero
+difference. A perturbed attention output, and each emulated kernel fault
+that the card check also runs, must be reported and must fail the gate.
+"""
+import dataclasses
+import importlib.util
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.config.base import DecodeConfig
+from repro_torch.config.registry import get_config
+from repro_torch.core.decoder import make_generate_fn
+from repro_torch.core.osdt import OSDTSession
+from repro_torch.data import tokenizer as tok
+from repro_torch.kernels import ops as kops
+from repro_torch.models import model as M
+
+_SPEC = importlib.util.spec_from_file_location(
+    "chip_smoke", pathlib.Path(__file__).resolve().parents[1]
+    / "chip_smoke.py")
+cs = importlib.util.module_from_spec(_SPEC)
+_SPEC.loader.exec_module(cs)
+_BLOCK_STEP = M.block_step
+
+
+@pytest.fixture(scope="module")
+def setup():
+    cfg = dataclasses.replace(
+        get_config("llada-8b").reduced(num_layers=2, max_d_model=128,
+                                       vocab_size=tok.VOCAB),
+        mask_token_id=tok.MASK_ID)
+    dcfg = DecodeConfig(max_new_tokens=32, block_size=8, policy="osdt",
+                        cap=0.75, slack=0.2, step_fusion="fused")
+    params = M.init_params(cfg, seed=0, device="cpu")
+    prompts = np.random.default_rng(0).integers(0, 256, (4, 16))
+    calib = OSDTSession(params, cfg, dcfg, tok.MASK_ID,
+                        gen_fn=make_generate_fn(cfg, dcfg,
+                                                attn_impl="kernel"))
+    calib.generate(prompts[:1])
+    return cfg, dcfg, params, prompts, calib.store
+
+
+def _replay(setup, fusion):
+    """The calibrated Phase 2 driven by the plain attention, the kernel
+    path checked at every block step; returns (result, replay rows)."""
+    cfg, dcfg, params, prompts, store = setup
+    dc = dataclasses.replace(dcfg, step_fusion=fusion)
+    return cs.replay_rows(params, cfg, dc, store, prompts)
+
+
+@pytest.mark.parametrize("fusion", ["fused", "unfused"])
+def test_replay_reports_zero_difference(setup, fusion):
+    """Both paths take the same plain attention on the CPU: every forward
+    (denoising steps and commits) compares equal, and the decode is the
+    one the plain path gives without the replay."""
+    res, rows = _replay(setup, fusion)
+    assert {r["kind"] for r in rows} == {"step", "commit"}
+    # one row per block-step forward: every forward but the prefill
+    assert len(rows) == res.nfe - 1
+    assert all(r["kernel"]["max_dconf"] == 0.0
+               and r["kernel"]["agree"] == 1.0 for r in rows)
+    # float32 in another order: within float32 rounding, same tokens
+    assert all(r["flash"]["share"] < 1e-4 and r["flash"]["agree"] == 1.0
+               for r in rows)
+    assert cs.replay_ok(rows)
+    cfg, dcfg, params, prompts, store = setup
+    dc = dataclasses.replace(dcfg, step_fusion=fusion)
+    plain = OSDTSession(params, cfg, dc, tok.MASK_ID, store=store,
+                        gen_fn=make_generate_fn(cfg, dc, attn_impl="dense"))
+    want = plain.generate(prompts)
+    assert torch.equal(res.tokens, want.tokens) and res.nfe == want.nfe
+    assert M.block_step is _BLOCK_STEP  # the replay restores it
+
+
+def test_replay_flags_a_perturbed_attention(setup, monkeypatch):
+    """A kernel path whose attention output is off by a factor of 2 is
+    reported at every denoising step and fails the gate; the plain path
+    still drives, so the decode is unchanged."""
+    orig = kops.cached_block_attention_kernel
+    monkeypatch.setattr(kops, "cached_block_attention_kernel",
+                        lambda *a, **k: orig(*a, **k) * 2.0)
+    res, rows = _replay(setup, "fused")
+    steps = [r for r in rows if r["kind"] == "step"]
+    assert steps and all(r["kernel"]["max_dconf"] > 0.0 for r in steps)
+    assert not cs.replay_ok(rows)
+    assert max(r["kernel"]["share"] for r in rows) > cs.REPLAY_CONF_SHARE
+    # the plain chunked attention is untouched: far inside the bars
+    assert max(r["flash"]["share"] for r in rows) < 1e-4
+
+
+def test_replay_compare_reads_masked_positions():
+    """Differences at unmasked positions do not count; with no masked
+    position every position counts; the hidden path unembeds first."""
+    g = np.random.default_rng(1)
+    logits = torch.tensor(g.standard_normal((2, 4, 50)), dtype=torch.float32)
+    masked = torch.tensor([[True, False, True, False]] * 2)
+    alt = logits.clone()
+    alt[:, 1] += torch.linspace(0, 5, 50)  # unmasked position 1 only
+    r = cs.replay_compare(logits, alt, masked)
+    assert r == dict(max_dconf=0.0, share=0.0, agree=1.0, n=4)
+    r = cs.replay_compare(logits, alt, torch.zeros_like(masked))
+    assert r["n"] == 8 and r["max_dconf"] > 0 and r["agree"] == 0.75
+    head = torch.tensor(g.standard_normal((16, 50)), dtype=torch.float32)
+    x = torch.tensor(g.standard_normal((2, 4, 16)), dtype=torch.float32)
+    r = cs.replay_compare(x, x + 0.5 * masked[..., None], masked, head=head)
+    want = cs.replay_compare(x @ head, (x + 0.5 * masked[..., None]) @ head,
+                             masked)
+    assert r == pytest.approx(want)
+
+
+@pytest.mark.parametrize("name", sorted(cs.REPLAY_FAULTS))
+def test_replay_rejects_emulated_faults(setup, monkeypatch, name):
+    """Each kernel fault that the card check emulates (a softmax scale 10%
+    high, the fresh block hidden, the last live slot dropped) moves the
+    kernel path past the bars here too, and the plain path still drives."""
+    monkeypatch.setattr(kops, "cached_block_attention_kernel",
+                        cs.REPLAY_FAULTS[name](
+                            kops.cached_block_attention_kernel))
+    res, rows = _replay(setup, "fused")
+    assert not cs.replay_ok(rows)
+    monkeypatch.undo()
+    want, _ = _replay(setup, "fused")
+    assert torch.equal(res.tokens, want.tokens) and res.nfe == want.nfe
+
+
+_S, _A = cs.REPLAY_CONF_SHARE, cs.REPLAY_ARGMAX_AGREE
+
+
+@pytest.mark.parametrize("kernel,flash,ok", [
+    ([(0.0, 1.0, 100)], [(0.0, 1.0, 100)], True),
+    ([(_S, _A, 100)], [(0.0, 1.0, 100)], True),
+    ([(_S * 1.01, 1.0, 100)], [(0.0, 1.0, 100)], False),
+    ([(0.0, _A - 0.01, 100)], [(0.0, 1.0, 100)], False),
+    # one forward past the share bar fails, however many others hold
+    ([(0.0, 1.0, 100)] * 9 + [(0.06, 1.0, 100)], [(0.0, 1.0, 100)] * 10,
+     False),
+    # argmax agreement is pooled over positions: 0.9 on 10 and 1.0 on 190
+    ([(0.0, 0.9, 10), (0.0, 1.0, 190)], [(0.0, 1.0, 10)] * 2, True),
+    ([(0.0, 0.9, 190), (0.0, 1.0, 10)], [(0.0, 1.0, 10)] * 2, False),
+    # the printed reference does not move the bars
+    ([(0.08, 0.9, 100)], [(0.5, 0.5, 100)], False),
+])
+def test_replay_gate(kernel, flash, ok):
+    """Every forward's conf share is held to the bar, and the argmax
+    agreement pooled over all compared positions to its bar; the plain
+    chunked attention's rows are not read; an empty replay fails."""
+    rows = [{impl: dict(share=share, agree=agree, n=n)
+             for impl, (share, agree, n) in (("kernel", k), ("flash", f))}
+            for k, f in zip(kernel, flash)]
+    assert cs.replay_ok(rows) is ok
+    assert not cs.replay_ok([])
