@@ -30,7 +30,12 @@ Needs one CUDA device and exits non-zero without one. In order it:
      the int8 matmul kernel (K5) in every projection and the head, the
      same Phase 2 on the dequantized weights through the bf16 path, and
      the same Phase 2 through the fused int8 epilogue (K6), which must
-     decode as the unfused int8 run does; then the flash path:
+     decode as the unfused int8 run does, then, outside the counts, the
+     int8 teacher-forced replay (the unfused int8 Phase 2 driven by the
+     plain int8 matmul, K5 run on the same inputs and cache at every
+     forward and held to the block attention replay's bars, and the same
+     replay under three emulated K5 faults, which must fail); then the
+     flash path:
      ``ops.flash_attention`` (K7) on layer 0's q, k, v of the full forward
      over the batch; and checks a reduced model's decode (bf16 and int8
      weights, both epilogues) on the card against the same decode on the
@@ -48,6 +53,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -365,7 +371,9 @@ def check_quantized_matmul(gen, dev):
     """K5 against its plain version at the main path's shapes (bf16 block
     step R = 256 and prefill R = 1024 over LLaDA-8B's projections, the
     f32 head at R = 256), the transposed layout, and a ragged shape in
-    both layouts and dtypes. Returns the main case's max abs error."""
+    both layouts and dtypes; a second launch of each bf16 block-step
+    shape must give the same bits. Returns the main case's max abs
+    error."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.quantized_matmul import \
         quantized_matmul_kernel as k5
@@ -407,6 +415,11 @@ def check_quantized_matmul(gen, dev):
               f"K5 {name} within {tol}")
         if name == f"bf16 R=256 [{M}, {F}]":
             main = err
+        if R == BATCH * BLOCK and not tr and dt == torch.bfloat16:
+            again = k5(x, qt.q, qt.scale, transpose=tr)
+            check(torch.equal(out, again), f"K5 {name}: two launches give "
+                  f"the same bits")
+            log(f"K5 {name}: a second launch gives the same bits")
         del x, qt, out, want
     torch.cuda.empty_cache()
     return main
@@ -887,6 +900,8 @@ def int8_path(dev, kernels, params, cfg, dcfg, prompts):
     check(res_f.nfe == res_q.nfe and match >= 0.99,
           "the fused int8 Phase 2 decodes as the unfused one does")
     total = {n: counts[n] + fcounts[n] for n in counts}
+    # compare-only: its launches are outside every path's count
+    int8_replay_path(qparams, cfg, qdcfg, session.store, prompts)
     return total, {"int8 unfused": session, "int8 fused": fused}
 
 
@@ -1123,20 +1138,36 @@ def replay_ok(rows) -> bool:
         1 - disagreement(rows, "kernel") >= REPLAY_ARGMAX_AGREE)
 
 
-class TeacherForced:
-    """While active, every ``models.model.block_step`` first runs with
-    each ``attn_impl`` of ``REPLAY_CHECKS`` and ``write=False`` on the caller's
-    inputs and cache, then as the caller asked, whose output (and cache)
-    drives the decode. Each forward adds one row to ``rows``: its
-    ``kind`` ("step" for a denoising forward, "commit" for one that
-    writes the cache) and, under each checked impl, its
-    :func:`replay_compare` against the driving output."""
+def attn_check(impl):
+    """A replay check: the same ``block_step`` with ``attn_impl=impl``."""
+    def run(step, *args, **kw):
+        return step(*args, **dict(kw, attn_impl=impl, write=False))[0]
+    return run
 
-    def __init__(self, params, cfg):
+
+class ReplayStop(Exception):
+    """Raised by :class:`TeacherForced` once its forward limit is met."""
+
+
+class TeacherForced:
+    """While active, every ``models.model.block_step`` first runs each
+    check of ``checks`` (``{name: fn(block_step, *args, **kw) -> output}``;
+    by default ``attn_impl`` of ``REPLAY_CHECKS``) with ``write=False`` on
+    the caller's inputs and cache, then as the caller asked, whose output
+    (and cache) drives the decode. Each forward adds one row to ``rows``:
+    its ``kind`` ("step" for a denoising forward, "commit" for one that
+    writes the cache) and, under each check, its :func:`replay_compare`
+    against the driving output. With ``forwards`` set, the row of that
+    forward raises :class:`ReplayStop` and the decode ends there."""
+
+    def __init__(self, params, cfg, checks=None, forwards=None):
         from repro_torch.models import model as M
 
         self.M, self.cfg = M, cfg
         self.head = M.head_weights(params, cfg)
+        self.checks = checks or {impl: attn_check(impl)
+                                 for impl in REPLAY_CHECKS}
+        self.forwards = forwards
         self.rows = []
 
     def __enter__(self):
@@ -1148,36 +1179,45 @@ class TeacherForced:
         self.M.block_step = self.orig
 
     def step(self, params, cfg, block_tokens, block_start, cache, **kw):
-        alts = {impl: self.orig(params, cfg, block_tokens, block_start,
-                                cache, **dict(kw, attn_impl=impl,
-                                              write=False))[0]
-                for impl in REPLAY_CHECKS}
+        alts = {name: fn(self.orig, params, cfg, block_tokens, block_start,
+                         cache, **kw)
+                for name, fn in self.checks.items()}
         out, cache = self.orig(params, cfg, block_tokens, block_start,
                                cache, **kw)
         head = None if kw.get("head", True) else self.head
         masked = block_tokens == self.cfg.mask_token_id
-        row = {impl: replay_compare(out, alt, masked, head=head,
+        row = {name: replay_compare(out, alt, masked, head=head,
                                     tied=self.cfg.tie_embeddings)
-               for impl, alt in alts.items()}
+               for name, alt in alts.items()}
         row["kind"] = "commit" if kw.get("write") else "step"
         self.rows.append(row)
+        if len(self.rows) == self.forwards:
+            raise ReplayStop
         return out, cache
 
 
-def replay_rows(params, cfg, dcfg, store, prompts):
-    """One OSDT decode of ``prompts`` on the calibrated ``store``, driven by
-    the plain block attention, with every impl of ``REPLAY_CHECKS`` run on
-    the same inputs and cache at each forward: (result, replay rows).
-    Unlike the tokens of two free-running decodes, this comparison does
-    not compound: each forward sees the same inputs on every side."""
+def replay_rows(params, cfg, dcfg, store, prompts, attn_impl="dense",
+                checks=None, forwards=None):
+    """One OSDT decode of ``prompts`` on the calibrated ``store``, driven
+    with ``attn_impl`` (by default the plain block attention), with every
+    check (by default each impl of ``REPLAY_CHECKS``) run on the same
+    inputs and cache at each forward: (result, replay rows). Unlike the
+    tokens of two free-running decodes, this comparison does not
+    compound: each forward sees the same inputs on every side. With
+    ``forwards``, the decode stops after that many block-step forwards
+    and the result is None."""
     from repro_torch.core.decoder import make_generate_fn
     from repro_torch.core.osdt import OSDTSession
     from repro_torch.data import tokenizer as tok
 
     s = OSDTSession(params, cfg, dcfg, tok.MASK_ID, store=store,
-                    gen_fn=make_generate_fn(cfg, dcfg, attn_impl="dense"))
-    with TeacherForced(params, cfg) as tf:
-        res = s.generate(prompts)
+                    gen_fn=make_generate_fn(cfg, dcfg, attn_impl=attn_impl))
+    res = None
+    with TeacherForced(params, cfg, checks, forwards) as tf:
+        try:
+            res = s.generate(prompts)
+        except ReplayStop:
+            pass
     return res, tf.rows
 
 
@@ -1220,6 +1260,127 @@ def replay_path(params, cfg, dcfg, store, prompts):
             f"agreement {1 - disagreement(rows, 'kernel'):.4f}, "
             f"rejected: {caught}")
         check(caught, f"the replay's gate rejects the fault {name}")
+
+
+# The int8 replay: one unfused int8 Phase 2 driven by the plain int8
+# matmul (``ref.quantized_matmul_ref`` on the card, in place of
+# ``kernels.ops.quantized_matmul_kernel``), the int8 matmul kernel (K5)
+# run on the same inputs and cache at every forward, the block attention
+# kernel on both sides, gated by the same bars as K1's.
+
+class K5Swapped:
+    """While active, ``kernels.ops`` calls ``fn`` for the int8 matmul."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __enter__(self):
+        from repro_torch.kernels import ops as kops
+
+        self.kops, self.saved = kops, kops.quantized_matmul_kernel
+        kops.quantized_matmul_kernel = self.fn
+
+    def __exit__(self, *exc):
+        self.kops.quantized_matmul_kernel = self.saved
+
+
+def k5_check(fn):
+    """A replay check: the same ``block_step`` with the int8 matmul ``fn``
+    (the kernel, or the kernel under an emulated fault)."""
+    def run(step, *args, **kw):
+        with K5Swapped(fn):
+            return step(*args, **dict(kw, write=False))[0]
+    return run
+
+
+def _tail_dropped(x, *_):
+    """x with the last 1/16 of its contraction zeroed."""
+    x = x.clone()
+    x[:, x.shape[1] - x.shape[1] // 16:] = 0
+    return x
+
+
+def _stage_twice(f, x, q, scale, *, transpose):
+    """The product plus the middle 64-deep stage of it once more."""
+    k0 = 64 * (x.shape[1] // 128)
+    xs = torch.zeros_like(x)
+    xs[:, k0:k0 + 64] = x[:, k0:k0 + 64]
+    out = f(x, q, scale, transpose=transpose).float()
+    return (out + f(xs, q, scale, transpose=transpose).float()).to(x.dtype)
+
+
+# Kernel faults the int8 replay must reject, each emulated around K5's
+# wrapper as a kernel with that fault would compute: every column scaled
+# by its neighbour's scale, the last 1/16 of the contraction dropped, one
+# 64-deep K stage counted twice.
+K5_REPLAY_FAULTS = {
+    "scale_one_channel_over": lambda f: (
+        lambda x, q, scale, *, transpose: f(
+            x, q, torch.roll(scale.reshape(-1), 1).reshape(scale.shape),
+            transpose=transpose)),
+    "last_sixteenth_dropped": lambda f: (
+        lambda x, q, scale, *, transpose: f(
+            _tail_dropped(x), q, scale, transpose=transpose)),
+    "one_stage_twice": lambda f: (
+        lambda x, q, scale, *, transpose: _stage_twice(
+            f, x, q, scale, transpose=transpose)),
+}
+
+
+# The faults' replays stop after this many block-step forwards (on the
+# main path's batch: blocks 0 and 1 with their commits, and the start of
+# block 2); each fault is in every projection of every forward, so the
+# first forwards show it as surely as the whole decode.
+K5_FAULT_FORWARDS = 8
+
+
+def int8_replay_rows(qparams, cfg, qdcfg, store, prompts, kernel,
+                     forwards=None):
+    """The int8 replay's rows: the decode driven by the plain int8 matmul,
+    ``kernel`` (K5's wrapper, or a fault around it) checked, over the
+    first ``forwards`` block-step forwards (None: all)."""
+    from repro_torch.kernels.ref import quantized_matmul_ref
+
+    with K5Swapped(quantized_matmul_ref):
+        return replay_rows(qparams, cfg, qdcfg, store, prompts,
+                           attn_impl="kernel",
+                           checks={"kernel": k5_check(kernel)},
+                           forwards=forwards)
+
+
+def int8_replay_path(qparams, cfg, qdcfg, store, prompts):
+    """The int8 replay of the unfused int8 Phase 2 (its batch, its
+    calibrated table), gated by :func:`replay_ok`; then the same replay
+    under each fault of ``K5_REPLAY_FAULTS``, which the gate must
+    reject over the decode's first ``K5_FAULT_FORWARDS`` forwards."""
+    from repro_torch.kernels.quantized_matmul import \
+        quantized_matmul_kernel as k5
+
+    def summary(rows):
+        worst = max(range(len(rows)), key=lambda i: rows[i]["kernel"]["share"])
+        return (f"worst share {rows[worst]['kernel']['share']:.2%} (forward "
+                f"{worst}, {rows[worst]['kind']}), lowest argmax agreement "
+                f"{min(r['kernel']['agree'] for r in rows):.4f}, pooled "
+                f"agreement {1 - disagreement(rows, 'kernel'):.4f} over "
+                f"{sum(r['kernel']['n'] for r in rows)} positions")
+
+    res, rows = int8_replay_rows(qparams, cfg, qdcfg, store, prompts, k5)
+    torch.cuda.synchronize()
+    log(f"int8 teacher-forced replay, K5 against the plain int8 matmul "
+        f"driving the unfused int8 Phase 2 (NFE {res.nfe}, {len(rows)} "
+        f"block-step forwards): {summary(rows)}")
+    check(replay_ok(rows), "int8 teacher-forced replay: K5's conf share "
+          f"<= {REPLAY_CONF_SHARE:.0%} at every forward and its pooled "
+          f"argmax agreement >= {REPLAY_ARGMAX_AGREE}")
+    for name, fault in K5_REPLAY_FAULTS.items():
+        _, rows = int8_replay_rows(qparams, cfg, qdcfg, store, prompts,
+                                   fault(k5), forwards=K5_FAULT_FORWARDS)
+        caught = not replay_ok(rows)
+        log(f"int8 replay under the emulated K5 fault {name}, first "
+            f"{len(rows)} forwards: {summary(rows)}; share by forward "
+            + " ".join(f"{r['kernel']['share']:.2%}" for r in rows)
+            + f"; rejected: {caught}")
+        check(caught, f"the int8 replay's gate rejects the K5 fault {name}")
 
 
 def nfe_report(params, cfg, dcfg, store, batches: int = 6):
@@ -1692,9 +1853,13 @@ def main() -> int:
     secs = time.perf_counter() - t0
     log(f"kernel build: {secs:.1f}s for {sorted(logs)}")
     for name, text in logs.items():
+        fn = ""
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+            if "Compiling entry function" in line and "'" in line:
+                fn = re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "",
+                            line.split("'")[1])[:48]
+            elif "registers" in line or "spill" in line or "C75" in line:
+                log(f"  {name} {fn}: {line.strip()}")
 
     kernels = {"block_attention": cached_block_attention_kernel,
                "confidence": fused_confidence_kernel,

@@ -16,18 +16,30 @@
 // 3.35 TB/s; its 4*B*H*S*T*D = 8.6e9 operations take 0.0087 ms at the
 // bf16 tensor rate (989 TF/s). So bytes bound it; a causal mask halves
 // the operations and not the bytes.
-// Design (first, simple version): one block per (b*h, 64-query tile), the
-// query tiles of one head next to each other so they share its K/V tiles
-// in L2. A loop inside the block replaces the TPU's sequential key-tile
-// grid axis: each 64-key tile of K and V is staged into shared memory
-// (16-byte loads, then used), S = Q K^T and O += P V run on mma.sync
-// m16n8k16 (bf16 x bf16 -> f32; each warp owns 16 query rows, its Q
-// fragments in registers for the whole loop, P rounded to bf16 as it is
-// repacked from the S accumulators), and the running max and sum stay in
-// registers in f32. Ragged S and T are masked, never padded; a causal
-// block stops at the last key its rows see. f32 operands take a CUDA-core
-// FMA kernel of the same structure (16 query rows a block, 32 keys a
-// tile, one key a lane). No cp.async double buffering, TMA or wgmma yet.
+// bf16 design (flash_bf16): one block of 8 warps per (b*h, 128-query
+// tile), each warp 16 query rows whose Q fragments stay in registers,
+// the two query tiles of a head next to each other so the second reads
+// the head's K/V from L2; each 64-key tile of K and V therefore serves
+// 128 rows. K/V tiles come through a 3-stage cp.async ring (zero-filled
+// past T), so the next two tiles load while this one is multiplied, with
+// one barrier a tile. S = Q K^T and O += P V run on mma.sync m16n8k16
+// (bf16 x bf16 -> f32; K fragments by ldmatrix, V by ldmatrix.trans); the
+// online softmax runs in f32 in log2 units (exp2 of the scores scaled by
+// log2(e) / sqrt(D)), P rounded to bf16 once as it is repacked from the
+// S accumulators. A causal block stops at the last key its rows see,
+// and a warp whose rows all see keys skips a tile that holds none of
+// theirs. Ragged S and T are masked, never padded.
+// Built for sm_90a (nvcc -Xptxas -v, as chip_smoke.py prints it): 220
+// registers at D = 128, no spill, one block (8 warps) an SM, its ring
+// 102 KiB. Stating the block's minimum of one an SM matters: without it
+// ptxas held 196 registers and the kernel ran ~10% slower on the H100.
+// What bounds it as built is its instruction stream, not its bytes: a
+// variant that skipped the products and softmax ran well under one that
+// skipped the K/V loads. Moving S = Q K^T onto wgmma (as FlashAttention-3
+// does) is the next step; this body keeps mma.sync, whose fragments the
+// online softmax and the P V product read in place.
+// f32 operands take a CUDA-core FMA kernel (flash_f32: 16 query rows a
+// block, 32 keys a tile, one key a lane), unchanged.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -63,22 +75,32 @@ __device__ __forceinline__ float masked_score(float s, int key, int row,
 // bf16: tensor cores
 // ---------------------------------------------------------------------------
 
-constexpr int kQT = 64;        // query rows per block (4 warps x 16)
-constexpr int kKT = 64;        // keys per tile
-constexpr int kThreads = 128;
+constexpr int kWarps = 8;
+constexpr int kQT = 16 * kWarps;  // query rows per block, 16 a warp
+constexpr int kKT = 64;           // keys per tile
+constexpr int kStages = 3;        // K/V tiles in the cp.async ring
+constexpr int kBfThreads = 32 * kWarps;
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+struct FlashGeom {
+  // row stride D + 8 bf16: rows stay 16-byte aligned, and the 8 rows an
+  // ldmatrix phase reads hit distinct banks
+  static constexpr int kLd = D + 8;
+  static constexpr int kTile = kKT * kLd;  // bf16 elements of a K or V tile
+  static constexpr size_t kSmem = sizeof(__nv_bfloat16) * kStages * 2 * kTile;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kBfThreads, 1)
 flash_bf16(const __nv_bfloat16* __restrict__ q,
            const __nv_bfloat16* __restrict__ k,
            const __nv_bfloat16* __restrict__ v,
            __nv_bfloat16* __restrict__ o, int S, int T, int nq, bool causal,
-           int q_offset, float scale) {
-  // row stride D + 8 bf16: rows stay 16-byte aligned, and the 8 rows a
-  // fragment load or an ldmatrix phase touches hit distinct banks
-  constexpr int kLd = D + 8;
-  __shared__ __align__(16) __nv_bfloat16 ks[kKT * kLd];
-  __shared__ __align__(16) __nv_bfloat16 vs[kKT * kLd];
+           int q_offset, float scale_log2) {
+  using Geo = FlashGeom<D>;
+  constexpr int kLd = Geo::kLd;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -88,7 +110,30 @@ flash_bf16(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* qb = q + (size_t)bh * S * D;
   const __nv_bfloat16* kb = k + (size_t)bh * T * D;
   const __nv_bfloat16* vb = v + (size_t)bh * T * D;
-  const int r_lo = q0 + warp * 16 + g, r_hi = r_lo + 8;
+  const int w0 = q0 + warp * 16;  // this warp's first row
+  const int r_lo = w0 + g, r_hi = r_lo + 8;
+
+  const int kend = key_end(T, causal, q0, kQT, q_offset);
+  const int ntiles = (kend + kKT - 1) / kKT;
+  // tile `it` of K and V into its ring stage; keys past T are zero
+  auto load_tile = [&](int it) {
+    __nv_bfloat16* ks = ring + (it % kStages) * 2 * Geo::kTile;
+    __nv_bfloat16* vs = ks + Geo::kTile;
+    const int k0 = it * kKT;
+    for (int e = tid; e < kKT * D / 8; e += kBfThreads) {
+      const int r = e / (D / 8), c = (e % (D / 8)) * 8;
+      const bool ok = k0 + r < T;
+      const size_t off = (size_t)(ok ? k0 + r : 0) * D + c;
+      cp_async_zfill16(&ks[r * kLd + c], kb + off, ok);
+      cp_async_zfill16(&vs[r * kLd + c], vb + off, ok);
+    }
+  };
+  // the first tiles go out before the Q fragments are read
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < ntiles) load_tile(s);
+    cp_async_commit_group();
+  }
 
   // this warp's Q rows as A fragments, zero past S
   uint32_t qa[D / 16][4];
@@ -101,6 +146,7 @@ flash_bf16(const __nv_bfloat16* __restrict__ q,
     qa[kk][3] = r_hi < S ? ld_pair(qb + (size_t)r_hi * D + c + 8) : 0u;
   }
 
+  // scores in log2 units: s * scale * log2(e), so p = exp2(s - m)
   float m_lo = -INFINITY, m_hi = -INFINITY;  // running max of rows g, g+8
   float l_lo = 0.f, l_hi = 0.f;  // this thread's share of the running sum
   float oacc[D / 8][4];
@@ -109,32 +155,38 @@ flash_bf16(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int e = 0; e < 4; ++e) oacc[n][e] = 0.f;
 
-  const int kend = key_end(T, causal, q0, kQT, q_offset);
-  for (int k0 = 0; k0 < kend; k0 += kKT) {
-    __syncthreads();  // the previous tile is read
-    for (int e = tid; e < kKT * D / 8; e += kThreads) {
-      const int r = e / (D / 8), c = (e % (D / 8)) * 8;
-      uint4 kx = make_uint4(0, 0, 0, 0), vx = kx;
-      if (k0 + r < T) {
-        kx = *reinterpret_cast<const uint4*>(kb + (size_t)(k0 + r) * D + c);
-        vx = *reinterpret_cast<const uint4*>(vb + (size_t)(k0 + r) * D + c);
-      }
-      *reinterpret_cast<uint4*>(&ks[r * kLd + c]) = kx;
-      *reinterpret_cast<uint4*>(&vs[r * kLd + c]) = vx;
-    }
-    __syncthreads();
+  for (int it = 0; it < ntiles; ++it) {
+    cp_async_wait_group<kStages - 2>();  // tile `it` landed (own copies)
+    __syncthreads();  // ... everyone's; tile it - 1 is read by all warps
+    if (it + kStages - 1 < ntiles) load_tile(it + kStages - 1);
+    cp_async_commit_group();
+    const int k0 = it * kKT;
+    // causal: a warp whose rows all see keys, none of them in this tile,
+    // gains nothing from it (its scores would be -1e30 below a real max)
+    if (causal && w0 + q_offset >= 0 && k0 > w0 + 15 + q_offset) continue;
+    const __nv_bfloat16* ks = ring + (it % kStages) * 2 * Geo::kTile;
+    const __nv_bfloat16* vs = ks + Geo::kTile;
 
-    // S = Q K^T: 16 rows x 64 keys a warp, 8 chunks of 8 keys
+    // S = Q K^T: 16 rows x 32 keys a warp, 4 chunks of 8 keys
     float sacc[kKT / 8][4];
 #pragma unroll
     for (int j = 0; j < kKT / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) sacc[j][e] = 0.f;
+      if constexpr (D % 32 == 0) {
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const __nv_bfloat16* p = &ks[(j * 8 + g) * kLd + kk * 16 + 2 * t];
+        for (int kk = 0; kk < D / 32; ++kk) {
+          uint32_t kf[4];
+          ldmatrix_x4(kf, &ks[(j * 8 + (lane & 7)) * kLd + kk * 32 +
+                              (lane >> 3) * 8]);
+          const uint32_t b0[2] = {kf[0], kf[1]}, b1[2] = {kf[2], kf[3]};
+          mma_bf16(sacc[j], qa[2 * kk], b0);
+          mma_bf16(sacc[j], qa[2 * kk + 1], b1);
+        }
+      } else {
+        const __nv_bfloat16* p = &ks[(j * 8 + g) * kLd + 2 * t];
         const uint32_t b[2] = {ld_pair(p), ld_pair(p + 8)};
-        mma_bf16(sacc[j], qa[kk], b);
+        mma_bf16(sacc[j], qa[0], b);
       }
     }
 
@@ -145,7 +197,7 @@ flash_bf16(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int key = k0 + j * 8 + 2 * t + (e & 1);
-        const float s = masked_score(sacc[j][e] * scale, key,
+        const float s = masked_score(sacc[j][e] * scale_log2, key,
                                      e < 2 ? r_lo : r_hi, T, causal,
                                      q_offset);
         sacc[j][e] = s;
@@ -161,7 +213,7 @@ flash_bf16(const __nv_bfloat16* __restrict__ q,
       mx_hi = fmaxf(mx_hi, __shfl_xor_sync(kFull, mx_hi, off));
     }
     // every tile holds a key < T, so the new max is finite
-    const float c_lo = expf(m_lo - mx_lo), c_hi = expf(m_hi - mx_hi);
+    const float c_lo = exp2f(m_lo - mx_lo), c_hi = exp2f(m_hi - mx_hi);
     m_lo = mx_lo;
     m_hi = mx_hi;
     l_lo *= c_lo;
@@ -175,15 +227,16 @@ flash_bf16(const __nv_bfloat16* __restrict__ q,
     }
 #pragma unroll
     for (int j = 0; j < kKT / 8; ++j) {
-      sacc[j][0] = expf(sacc[j][0] - m_lo);
-      sacc[j][1] = expf(sacc[j][1] - m_lo);
-      sacc[j][2] = expf(sacc[j][2] - m_hi);
-      sacc[j][3] = expf(sacc[j][3] - m_hi);
+      sacc[j][0] = exp2f(sacc[j][0] - m_lo);
+      sacc[j][1] = exp2f(sacc[j][1] - m_lo);
+      sacc[j][2] = exp2f(sacc[j][2] - m_hi);
+      sacc[j][3] = exp2f(sacc[j][3] - m_hi);
       l_lo += sacc[j][0] + sacc[j][1];
       l_hi += sacc[j][2] + sacc[j][3];
     }
 
-    // O += P V: P's accumulators repack into A fragments, 16 keys a step
+    // O += P V, 16 keys a step: P's accumulators repack into A fragments,
+    // each probability rounded to bf16 once
 #pragma unroll
     for (int kk = 0; kk < kKT / 16; ++kk) {
       const uint32_t pa[4] = {
@@ -192,13 +245,18 @@ flash_bf16(const __nv_bfloat16* __restrict__ q,
           pack_bf16(sacc[2 * kk + 1][0], sacc[2 * kk + 1][1]),
           pack_bf16(sacc[2 * kk + 1][2], sacc[2 * kk + 1][3])};
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        uint32_t b[2];
-        ldmatrix_b_trans(b, &vs[(kk * 16 + (lane & 15)) * kLd + n * 8]);
-        mma_bf16(oacc[n], pa, b);
+      for (int n = 0; n < D / 16; ++n) {
+        uint32_t vf[4];
+        ldmatrix_x4_trans(vf, &vs[(kk * 16 + (lane & 7) +
+                                   ((lane >> 3) & 1) * 8) * kLd +
+                                  (2 * n + (lane >> 4)) * 8]);
+        const uint32_t b0[2] = {vf[0], vf[1]}, b1[2] = {vf[2], vf[3]};
+        mma_bf16(oacc[2 * n], pa, b0);
+        mma_bf16(oacc[2 * n + 1], pa, b1);
       }
     }
   }
+  cp_async_wait_group<0>();
 
 #pragma unroll
   for (int off = 1; off < 4; off <<= 1) {
@@ -224,6 +282,7 @@ flash_bf16(const __nv_bfloat16* __restrict__ q,
 // f32: CUDA-core FMAs
 // ---------------------------------------------------------------------------
 
+constexpr int kThreads = 128;
 constexpr int kFQ = 16;      // query rows per block (4 warps x 4)
 constexpr int kFK = 32;      // keys per tile: one a lane
 constexpr int kFMaxD = 128;  // head dims: up to 4 a lane
@@ -327,15 +386,25 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int D>
-void launch_bf16(const void* q, const void* k, const void* v, void* o, int BH,
-                 int S, int T, bool causal, int q_offset, float scale,
-                 cudaStream_t st) {
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
+                        int BH, int S, int T, bool causal, int q_offset,
+                        float scale, cudaStream_t st) {
+  constexpr size_t kSmem = FlashGeom<D>::kSmem;
+  static bool attr = false;
+  if (!attr) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)kSmem);
+    if (e != cudaSuccess) return e;
+    attr = true;
+  }
   const int nq = (S + kQT - 1) / kQT;
-  flash_bf16<D><<<BH * nq, kThreads, 0, st>>>(
+  flash_bf16<D><<<BH * nq, kBfThreads, kSmem, st>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      S, T, nq, causal, q_offset, scale);
+      S, T, nq, causal, q_offset, scale * 1.4426950408889634f);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -349,15 +418,18 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   const float scale = 1.f / sqrtf(static_cast<float>(D));
   if (is_bf16) {
     if (D == 16)
-      launch_bf16<16>(q, k, v, o, BH, S, T, causal, q_offset, scale, st);
-    else if (D == 32)
-      launch_bf16<32>(q, k, v, o, BH, S, T, causal, q_offset, scale, st);
-    else if (D == 64)
-      launch_bf16<64>(q, k, v, o, BH, S, T, causal, q_offset, scale, st);
-    else if (D == 128)
-      launch_bf16<128>(q, k, v, o, BH, S, T, causal, q_offset, scale, st);
-    else
-      return static_cast<int>(cudaErrorInvalidValue);
+      return launch_bf16<16>(q, k, v, o, BH, S, T, causal, q_offset, scale,
+                             st);
+    if (D == 32)
+      return launch_bf16<32>(q, k, v, o, BH, S, T, causal, q_offset, scale,
+                             st);
+    if (D == 64)
+      return launch_bf16<64>(q, k, v, o, BH, S, T, causal, q_offset, scale,
+                             st);
+    if (D == 128)
+      return launch_bf16<128>(q, k, v, o, BH, S, T, causal, q_offset, scale,
+                              st);
+    return static_cast<int>(cudaErrorInvalidValue);
   } else {
     if (D > kFMaxD) return static_cast<int>(cudaErrorInvalidValue);
     const int nq = (S + kFQ - 1) / kFQ;

@@ -1,7 +1,8 @@
-// bf16 tensor-core building blocks shared by the int8 matmul kernel (K5),
-// the flash attention kernel (K7) and the block attention kernels (K1,
-// K4): mma.sync m16n8k16 (bf16 x bf16 -> f32), its fragment loads from
-// shared memory, and the cp.async copies that fill shared memory.
+// bf16 tensor-core building blocks shared by the block attention kernels
+// (K1, K4), the flash attention kernel (K7) and the int8 matmul kernel
+// (K5, whose wgmma A fragments are mma.sync's): mma.sync m16n8k16 (bf16 x
+// bf16 -> f32), its fragment loads from shared memory, and the cp.async
+// copies that fill shared memory.
 //
 // Fragments of one warp (g = lane / 4, t = lane % 4): A (16 x 16, row
 // major) a0 = A[g][2t, 2t+1], a1 = A[g+8][2t, 2t+1], a2 = A[g][2t+8, 2t+9],
@@ -29,17 +30,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// the k16 x n8 B fragment from a [k][col] tile: lanes 0-15 name the 16
-// rows (k) of the 8 columns starting at `p`'s column; .trans hands each
-// thread (k = 2t, 2t + 1; col g) and (k = 2t + 8, 2t + 9; col g)
-__device__ __forceinline__ void ldmatrix_b_trans(uint32_t (&b)[2],
-                                                 const __nv_bfloat16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(b[0]), "=r"(b[1])
-      : "r"(smem_addr(p)));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

@@ -23,7 +23,7 @@ _SIGNATURES = {
 
 _BF16_HEAD_DIMS = (16, 32, 64, 128)  # csrc/flash_attention.cu's bf16 widths
 _MAX_F32_HEAD_DIM = 128              # kFMaxD
-_Q_TILE = {torch.bfloat16: 64, torch.float32: 16}  # kQT, kFQ
+_Q_TILE = {torch.bfloat16: 128, torch.float32: 16}  # kQT, kFQ
 
 
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -4,10 +4,10 @@
 ``quantized_matmul_pallas``: ``x @ dequant(q, scale)`` with the int8
 weight dequantized per output channel before the product, in either
 layout (``[K, N]``, or ``[N, K]`` with ``transpose=True`` for the tied
-unembed). Source: ``csrc/quantized_matmul.cu`` (bf16 activations on the
-tensor cores, float32 activations on CUDA-core FMAs). A CPU tensor goes
-to the plain version (``ref.quantized_matmul_ref``); a CUDA tensor
-launches the kernel or raises.
+unembed). Source: ``csrc/quantized_matmul.cu`` (bf16 activations on
+``wgmma``, float32 activations on CUDA-core FMAs). A CPU tensor goes to
+the plain version (``ref.quantized_matmul_ref``); a CUDA tensor launches
+the kernel or raises.
 """
 from __future__ import annotations
 
@@ -20,11 +20,30 @@ from repro_torch.kernels.ref import quantized_matmul_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "quantized_matmul": (ctypes.c_int, [_P] * 4 + [_I] * 5 + [_P]),
+    "quantized_matmul": (ctypes.c_int, [_P] * 4 + [_I] * 6 + [_P]),
 }
 
-_BN = 128            # columns per block (csrc/quantized_matmul.cu kBN, kFN)
-_MAX_GRID_Y = 65535  # the column tiles ride the grid's y dimension
+# the bf16 kernel's block shapes (csrc/quantized_matmul.cu launch_tile):
+# (rows, columns, blocks an SM by shared memory)
+_TILES = ((256, 128, 1), (128, 64, 2), (64, 64, 3))
+_FILL = 0.7          # a block shape must keep this share of the SMs busy
+_F32_BN = 128        # the float32 kernel's column tile (qmm_f32.cuh kFN)
+_MAX_GRID_Y = 65535  # the row tiles (bf16) or column tiles (f32) on grid y
+_SMS = {}
+
+
+def plan(R: int, N: int, sms: int) -> int:
+    """The bf16 kernel's block shape for R rows and N columns on a card
+    with ``sms`` SMs: the largest of ``_TILES`` whose blocks keep at least
+    ``_FILL`` of the SMs busy, else the one with the most blocks (of those,
+    the fewest rows: the least padding for a short R). Every
+    shape runs the whole K loop in one block, so the sums are those of
+    one K loop whatever the shape."""
+    blocks = [-(-R // rows) * -(-N // cols) for rows, cols, _ in _TILES]
+    for i, b in enumerate(blocks):
+        if b >= _FILL * sms:
+            return i
+    return max(range(len(_TILES)), key=lambda i: (blocks[i], -_TILES[i][0]))
 
 
 def quantized_matmul_kernel(x: torch.Tensor, q: torch.Tensor,
@@ -48,8 +67,9 @@ def quantized_matmul_kernel(x: torch.Tensor, q: torch.Tensor,
         raise ValueError(f"q {tuple(q.shape)} and scale {tuple(scale.shape)} "
                          f"do not match x {tuple(x.shape)} "
                          f"(transpose={transpose})")
-    if -(-N // _BN) > _MAX_GRID_Y:
-        raise ValueError(f"N={N} exceeds the kernel's column grid")
+    bf16 = x.dtype == torch.bfloat16
+    if (-(-R // 64) if bf16 else -(-N // _F32_BN)) > _MAX_GRID_Y:
+        raise ValueError(f"[{R}, {N}] exceeds the kernel's grid")
     tensors = (x, q, scale)
     if any(t.device != x.device or not t.is_contiguous() for t in tensors):
         raise ValueError("int8 matmul operands must be contiguous and on one "
@@ -57,10 +77,16 @@ def quantized_matmul_kernel(x: torch.Tensor, q: torch.Tensor,
     out = torch.empty((R, N), dtype=x.dtype, device=x.device)
     if R == 0 or N == 0:
         return out
+    tile = 0
+    if bf16:
+        if x.device not in _SMS:
+            _SMS[x.device] = torch.cuda.get_device_properties(
+                x.device).multi_processor_count
+        tile = plan(R, N, _SMS[x.device])
     lib = build.load("quantized_matmul", _SIGNATURES)
     err = lib.quantized_matmul(
-        x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), R, K, N,
-        int(transpose), int(x.dtype == torch.bfloat16),
+        x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), R, K,
+        N, int(transpose), int(bf16), tile,
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "quantized_matmul")
     quantized_matmul_kernel.launches += 1

@@ -228,10 +228,16 @@ def test_fused_step_kernel(dev, tied, quota):
 
 
 @pytest.mark.parametrize("R,K,N", [
-    (1, 128, 128),     # one row; bf16 fills its ring with cp.async
+    (1, 128, 128),     # one row; bf16 fills its ring by TMA
     (70, 256, 1000),   # ragged row and column tiles
     (13, 200, 513),    # ragged everything
-    (9, 130, 515),     # no row of q 4-aligned: byte loads
+    (9, 130, 515),     # no row of q 4-aligned: byte loads (bf16: plain)
+    (16, 1000, 384),   # K not a multiple of the 64-deep stage
+    (256, 512, 200),   # 256 rows; N not a multiple of 128
+    # bf16 block shapes (the wrapper's plan on a 132-SM card):
+    (256, 1000, 12288),  # 256 x 128, ragged K
+    (300, 1000, 4096),   # 128 x 64, ragged R and K
+    (300, 512, 12200),   # 256 x 128 through plain loads (N % 16 != 0)
 ])
 @pytest.mark.parametrize("transpose", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -296,6 +302,10 @@ def test_quantized_fused_step_kernel(dev, R, M, V, tied, quota, dtype):
     (2, 3, 1, 77, 128, True, 76),     # one query
     (1, 2, 70, 40, 64, True, -30),    # rows that see no key
     (1, 2, 128, 128, 128, False, 0),
+    (1, 2, 64, 64, 128, False, 0),    # half a 128-row block
+    (2, 2, 256, 256, 128, False, 0),  # two blocks a head
+    (2, 2, 256, 256, 128, True, 0),   # causal: later blocks see more keys
+    (1, 3, 200, 231, 128, True, 31),  # causal ragged tail of S and T
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel(dev, B, H, S, T, D, causal, q_offset, dtype):

@@ -161,3 +161,96 @@ def test_replay_gate(kernel, flash, ok):
             for k, f in zip(kernel, flash)]
     assert cs.replay_ok(rows) is ok
     assert not cs.replay_ok([])
+
+
+# ---------------------------------------------------------------------------
+# the int8 replay: K5 against the plain int8 matmul
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def int8_setup(setup):
+    """The reduced model's weights quantized, the unfused int8 decode and
+    its calibrated store."""
+    from repro_torch.models.quantize import quantize_decode_params
+
+    cfg, dcfg, params, prompts, _ = setup
+    qparams = quantize_decode_params(params, cfg)
+    qdcfg = dataclasses.replace(dcfg, step_fusion="unfused",
+                                weight_dtype="int8")
+    calib = OSDTSession(qparams, cfg, qdcfg, tok.MASK_ID,
+                        gen_fn=make_generate_fn(cfg, qdcfg,
+                                                attn_impl="kernel"))
+    calib.generate(prompts[:1])
+    return cfg, qdcfg, qparams, prompts, calib.store
+
+
+def test_int8_replay_reports_zero_difference(int8_setup):
+    """On the CPU the int8 matmul's wrapper takes the plain version, which
+    the replay also drives with: every forward compares equal, the decode
+    is the plain int8 decode, and the wrapper is restored."""
+    from repro_torch.kernels.quantized_matmul import \
+        quantized_matmul_kernel as k5
+
+    cfg, qdcfg, qparams, prompts, store = int8_setup
+    res, rows = cs.int8_replay_rows(qparams, cfg, qdcfg, store, prompts, k5)
+    assert len(rows) == res.nfe - 1
+    assert {r["kind"] for r in rows} == {"step", "commit"}
+    assert all(r["kernel"]["max_dconf"] == 0.0
+               and r["kernel"]["agree"] == 1.0 for r in rows)
+    assert cs.replay_ok(rows)
+    assert kops.quantized_matmul_kernel is k5
+    plain = OSDTSession(qparams, cfg, qdcfg, tok.MASK_ID, store=store,
+                        gen_fn=make_generate_fn(cfg, qdcfg,
+                                                attn_impl="kernel"))
+    want = plain.generate(prompts)
+    assert torch.equal(res.tokens, want.tokens) and res.nfe == want.nfe
+
+
+@pytest.mark.parametrize("name", sorted(cs.K5_REPLAY_FAULTS))
+def test_int8_replay_rejects_emulated_k5_faults(int8_setup, name):
+    """Each K5 fault that the card check emulates (a neighbour's scale,
+    the contraction's last 1/16 dropped, one K stage counted twice) moves
+    the checked path past the bars, while the plain int8 matmul still
+    drives the same decode."""
+    from repro_torch.kernels.quantized_matmul import \
+        quantized_matmul_kernel as k5
+
+    cfg, qdcfg, qparams, prompts, store = int8_setup
+    res, rows = cs.int8_replay_rows(qparams, cfg, qdcfg, store, prompts,
+                                    cs.K5_REPLAY_FAULTS[name](k5))
+    assert not cs.replay_ok(rows)
+    want, _ = cs.int8_replay_rows(qparams, cfg, qdcfg, store, prompts, k5)
+    assert torch.equal(res.tokens, want.tokens) and res.nfe == want.nfe
+
+
+def test_int8_replay_stops_after_forwards(int8_setup):
+    """With a forward limit the replay ends the decode there: its rows are
+    the first rows of the whole replay, there is no result, and the
+    model's ``block_step`` and the int8 matmul are restored."""
+    from repro_torch.kernels.quantized_matmul import \
+        quantized_matmul_kernel as k5
+
+    cfg, qdcfg, qparams, prompts, store = int8_setup
+    fault = cs.K5_REPLAY_FAULTS["one_stage_twice"](k5)
+    _, whole = cs.int8_replay_rows(qparams, cfg, qdcfg, store, prompts, fault)
+    res, rows = cs.int8_replay_rows(qparams, cfg, qdcfg, store, prompts,
+                                    fault, forwards=3)
+    assert res is None and len(whole) > 3
+    assert rows == whole[:3]
+    assert M.block_step is _BLOCK_STEP and kops.quantized_matmul_kernel is k5
+
+
+@pytest.mark.parametrize("name", sorted(cs.K5_REPLAY_FAULTS))
+def test_int8_replay_rejects_k5_faults_in_first_forwards(int8_setup, name):
+    """The card check runs each K5 fault's replay over the decode's first
+    ``K5_FAULT_FORWARDS`` forwards only: that many already fail the
+    gate."""
+    from repro_torch.kernels.quantized_matmul import \
+        quantized_matmul_kernel as k5
+
+    cfg, qdcfg, qparams, prompts, store = int8_setup
+    _, rows = cs.int8_replay_rows(qparams, cfg, qdcfg, store, prompts,
+                                  cs.K5_REPLAY_FAULTS[name](k5),
+                                  forwards=cs.K5_FAULT_FORWARDS)
+    assert len(rows) == cs.K5_FAULT_FORWARDS
+    assert not cs.replay_ok(rows)
