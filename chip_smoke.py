@@ -18,9 +18,13 @@ Needs one CUDA device and exits non-zero without one. In order it:
      counts, the teacher-forced replay (the same fused Phase 2 driven by
      the plain block attention, the kernel run on the same inputs and
      cache at every forward: each forward's conf and argmax must follow,
-     and the same replay under three emulated kernel faults must fail)
-     and a report, not a gate, of the Phase-2 NFE with the kernel and with
-     the plain attention over six prompt batches; then the paged path:
+     and the same replay under three emulated kernel faults must fail),
+     the K3 replay (the same fused Phase 2 driven by the plain fused step,
+     the fused step kernel run on the same inputs at every denoising
+     forward, held to the same bars, and the same replay under three
+     emulated K3 faults, which must fail them) and a report, not a gate,
+     of the Phase-2 NFE with the kernel and with the plain attention over
+     two prompt batches; then the paged path:
      the same Phase-2 decode over a page pool through a permuted page table
      (K4 + K3), whose tokens, NFE and steps must equal the dense run's, and
      a 64-token system prefix prefilled once into allocator pages that
@@ -192,6 +196,8 @@ def check_kernels(dev):
     from repro_torch.kernels import ref
     from repro_torch.kernels.confidence import fused_confidence_kernel as k2
     from repro_torch.kernels.fused_step import fused_step_kernel as k3
+    from repro_torch.kernels.fused_step import fused_step_plain
+    from repro_torch.kernels.fused_step import plan as k3_plan
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.ops import cached_block_attention as k1
     from repro_torch.models.layers import unembed
@@ -307,17 +313,25 @@ def check_kernels(dev):
     # K3: bf16 x and head, products exact in f32; the f32 sums differ by
     # at most ~M * 2^-24 * sum|x w| per logit, so tokens must be equal
     # wherever the plain top-2 gap exceeds twice that, and `above` wherever
-    # conf is further than 1e-3 relative from tau
+    # conf is further than 1e-3 relative from tau. The main path runs K3
+    # untied at R = BATCH * BLOCK (Phase 2) and BLOCK (Phase 1) rows; K3's
+    # plan gives each row count its own block, and the cases below must
+    # reach every block those two steps take.
     M = 4096
     k3_cases = [
         ("main_untied", R, M, V, False, 0),
+        ("phase1", BLOCK, M, V, False, 0),
         ("tied_ragged_V", 40, 512, 1000, True, 0),
         ("quota", 4 * BLOCK, 512, 3001, False, 4),
     ]
+    k3_blocks = set()
     for name, R3, M3, V3, tied, quota in k3_cases:
         x = torch.randn((R3, M3), generator=gen, device=dev).to(torch.bfloat16)
         w = (torch.randn((V3, M3) if tied else (M3, V3), generator=gen,
                          device=dev) * M3 ** -0.5).to(torch.bfloat16)
+        k3_blocks.add(k3_plan(R3, V3, tied, M3 % 8 == 0 and
+                              x.data_ptr() % 16 == 0 and
+                              w.data_ptr() % 16 == 0))
         logits = unembed(w, x, transpose=tied)
         c0, _ = ref.confidence_ref(logits)
         tau = c0 * torch.where(torch.rand(R3, generator=gen, device=dev)
@@ -326,14 +340,9 @@ def check_kernels(dev):
         group = BLOCK if quota else 0
         conf, tok, above = k3(x, w, tau, masked, tied=tied, quota=quota,
                               group=group)
-        if quota:
-            g = R3 // group
-            rc, rt, ra = ref.fused_step_ref(
-                x.reshape(g, group, M3), w, tau.reshape(g, group),
-                masked.reshape(g, group), tied=tied, quota=quota)
-            rc, rt, ra = rc.reshape(-1), rt.reshape(-1), ra.reshape(-1)
-        else:
-            rc, rt, ra = ref.fused_step_ref(x, w, tau, masked, tied=tied)
+        again = k3(x, w, tau, masked, tied=tied, quota=quota, group=group)
+        rc, rt, ra = fused_step_plain(x, w, tau, masked, tied=tied,
+                                      quota=quota, group=group)
         sabs = unembed(w.abs(), x.abs(), transpose=tied)
         gap_bound = 2 * M3 * 2.0 ** -24 * sabs.amax(dim=-1)
         top2 = logits.topk(2, dim=-1).values
@@ -345,12 +354,20 @@ def check_kernels(dev):
         far = ((rc - tau).abs() > 1e-3 * rc) if not quota else \
             torch.ones_like(masked)
         amism = int(((above != ra) & far).sum())
+        same = all(torch.equal(a, b) for a, b in zip((conf, tok, above),
+                                                      again))
         log(f"K3 {name}: conf_rel_err={rel:.3e} token_mismatches={mism} "
             f"(rows with a clear top-2 gap: {int(clear.sum())}/{R3}) "
-            f"above_mismatches={amism}")
+            f"above_mismatches={amism} same_bits_twice={same}")
         check(rel <= 1e-3 and mism == 0 and amism == 0, f"K3 {name}")
+        check(same, f"K3 {name} gives the same bits twice")
         if name == "main_untied":
             errs["fused_step"] = float((conf - rc).abs().max())
+    main_blocks = {k3_plan(rows, V, False, True) for rows in (R, BLOCK)}
+    log(f"K3 blocks checked: {sorted(k3_blocks)}; the main path's: "
+        f"{sorted(main_blocks)}")
+    check(main_blocks <= k3_blocks, "the K3 check reaches every block the "
+          "main path's steps take")
 
     errs["quantized_matmul"] = check_quantized_matmul(gen, dev)
     errs["quantized_fused_step"] = check_quantized_fused_step(gen, dev)
@@ -742,6 +759,7 @@ def main_path(dev, kernels):
         f" GB")
     # compare-only phases: their launches are outside every path's count
     replay_path(params, cfg, dcfg, session.store, prompts)
+    k3_replay_path(params, cfg, dcfg, session.store, prompts)
     nfe_report(params, cfg, dcfg, session.store)
     paged_counts = paged_path(dev, kernels, params, cfg, dcfg, table,
                               prompts, out["phase2_osdt_fused"][0])
@@ -1262,6 +1280,136 @@ def replay_path(params, cfg, dcfg, store, prompts):
         check(caught, f"the replay's gate rejects the fault {name}")
 
 
+# The K3 replay: one bf16 fused Phase 2 driven by the plain fused step
+# (``fused_step_plain`` on the card, in place of
+# ``kernels.ops.fused_step_kernel``), the fused step kernel (K3) run on
+# the same (x, w, tau, masked) at every denoising forward, the block
+# attention kernel driving the forwards, gated by the same bars as K1's.
+
+class K3Replay:
+    """While active, ``kernels.ops`` takes the plain fused step for the
+    fused epilogue, after running ``kernel`` (K3's wrapper, or a fault
+    around it) on the same inputs; each call adds one row to ``rows``,
+    :func:`k3_compare` of the two under ``"kernel"``."""
+
+    def __init__(self, kernel):
+        self.kernel = kernel
+        self.rows = []
+
+    def __enter__(self):
+        from repro_torch.kernels import ops as kops
+
+        self.kops, self.saved = kops, kops.fused_step_kernel
+        kops.fused_step_kernel = self.step
+        return self
+
+    def __exit__(self, *exc):
+        self.kops.fused_step_kernel = self.saved
+
+    def step(self, x, w, tau, masked, *, tied, quota=0, group=0):
+        from repro_torch.kernels.fused_step import fused_step_plain
+
+        got = self.kernel(x, w, tau, masked, tied=tied, quota=quota,
+                          group=group)
+        want = fused_step_plain(x, w, tau, masked, tied=tied, quota=quota,
+                                group=group)
+        self.rows.append({"kind": "step", "kernel": k3_compare(
+            want, got, masked, None if quota else tau)})
+        return want
+
+
+def k3_compare(want, got, masked, tau=None):
+    """Two fused steps' ``(conf, tok, above)`` on the same inputs, as
+    :func:`replay_compare` reads two forwards: the max |conf difference|
+    over the masked positions (every position when none is), its share of
+    ``want``'s max conf there, the argmax agreement and the count; and
+    ``above``'s disagreements over the positions whose conf is further
+    than 1e-3 relative from ``tau`` (every position in quota mode,
+    ``tau`` None), with that count."""
+    (c0, t0, a0), (c1, t1, a1) = want, got
+    sel = masked if bool(masked.any()) else torch.ones_like(masked)
+    dmax = float((c1 - c0).abs()[sel].max())
+    far = torch.ones_like(masked) if tau is None else \
+        (c0 - tau).abs() > 1e-3 * c0
+    return dict(max_dconf=dmax, share=dmax / float(c0[sel].max()),
+                agree=float((t0 == t1)[sel].float().mean()),
+                n=int(sel.sum()), above_mismatch=int(((a0 != a1) & far)
+                                                     .sum()),
+                above_far=int(far.sum()))
+
+
+def _lower_vocab(w, tied):
+    """The head's first half of the vocabulary."""
+    V = w.shape[0] if tied else w.shape[1]
+    return (w[:V // 2] if tied else w[:, :V // 2]).contiguous()
+
+
+# K3 faults the replay must reject, each emulated around K3's wrapper as
+# a kernel with that fault would compute: logits 10% high (x scaled), the
+# last 1/16 of the contraction dropped, the upper half of the vocabulary
+# hidden.
+K3_REPLAY_FAULTS = {
+    "logits_10pct_high": lambda f: (
+        lambda x, w, *a, **k: f(x * 1.1, w, *a, **k)),
+    "last_sixteenth_dropped": lambda f: (
+        lambda x, w, *a, **k: f(_tail_dropped(x), w, *a, **k)),
+    "upper_vocab_hidden": lambda f: (
+        lambda x, w, *a, tied, **k: f(x, _lower_vocab(w, tied), *a,
+                                      tied=tied, **k)),
+}
+
+
+def k3_replay_rows(params, cfg, dcfg, store, prompts, kernel):
+    """The K3 replay's rows: the fused decode driven by the plain fused
+    step, ``kernel`` (K3's wrapper, or a fault around it) checked at
+    every denoising forward: (result, rows)."""
+    from repro_torch.core.decoder import make_generate_fn
+    from repro_torch.core.osdt import OSDTSession
+    from repro_torch.data import tokenizer as tok
+
+    s = OSDTSession(params, cfg, dcfg, tok.MASK_ID, store=store,
+                    gen_fn=make_generate_fn(cfg, dcfg, attn_impl="kernel"))
+    with K3Replay(kernel) as rp:
+        res = s.generate(prompts)
+    return res, rp.rows
+
+
+def k3_replay_path(params, cfg, dcfg, store, prompts):
+    """The K3 replay of the main path's bf16 fused Phase 2 (its batch, its
+    calibrated table), gated by :func:`replay_ok`; then the same replay
+    under each fault of ``K3_REPLAY_FAULTS``, which the gate must
+    reject."""
+    from repro_torch.kernels.fused_step import fused_step_kernel as k3
+
+    def summary(rows):
+        k = [r["kernel"] for r in rows]
+        return (f"max |dconf| {max(r['max_dconf'] for r in k):.3e}, worst "
+                f"share {max(r['share'] for r in k):.2%}, lowest "
+                f"argmax agreement {min(r['agree'] for r in k):.4f}, pooled "
+                f"agreement {1 - disagreement(rows, 'kernel'):.4f} over "
+                f"{sum(r['n'] for r in k)} positions, above mismatches "
+                f"{sum(r['above_mismatch'] for r in k)} of "
+                f"{sum(r['above_far'] for r in k)} positions 1e-3 from tau; "
+                "share by forward " + " ".join(f"{r['share']:.2%}"
+                                               for r in k))
+
+    res, rows = k3_replay_rows(params, cfg, dcfg, store, prompts, k3)
+    torch.cuda.synchronize()
+    log(f"K3 teacher-forced replay, K3 against the plain fused step "
+        f"driving the bf16 fused Phase 2 (NFE {res.nfe}, {len(rows)} "
+        f"denoising forwards): {summary(rows)}")
+    check(replay_ok(rows), "K3 teacher-forced replay: K3's conf share "
+          f"<= {REPLAY_CONF_SHARE:.0%} at every forward and its pooled "
+          f"argmax agreement >= {REPLAY_ARGMAX_AGREE}")
+    for name, fault in K3_REPLAY_FAULTS.items():
+        _, rows = k3_replay_rows(params, cfg, dcfg, store, prompts,
+                                 fault(k3))
+        caught = not replay_ok(rows)
+        log(f"K3 replay under the emulated fault {name}: {summary(rows)}; "
+            f"rejected: {caught}")
+        check(caught, f"the K3 replay's gate rejects the fault {name}")
+
+
 # The int8 replay: one unfused int8 Phase 2 driven by the plain int8
 # matmul (``ref.quantized_matmul_ref`` on the card, in place of
 # ``kernels.ops.quantized_matmul_kernel``), the int8 matmul kernel (K5)
@@ -1383,7 +1531,7 @@ def int8_replay_path(qparams, cfg, qdcfg, store, prompts):
         check(caught, f"the int8 replay's gate rejects the K5 fault {name}")
 
 
-def nfe_report(params, cfg, dcfg, store, batches: int = 6):
+def nfe_report(params, cfg, dcfg, store, batches: int = 2):
     """Not a gate: the bf16 fused Phase-2 NFE with the kernel and with the
     plain attention, on the calibrated table, over ``batches`` prompt
     batches from seeds SEED .. SEED + batches - 1. On random weights every
@@ -1442,12 +1590,18 @@ def profile_phase2(session, prompts, label):
     k5 = sum(dev_us(e) for e in kern if "qmm_" in e.key) / 1e6 - k6
     k1 = [e for e in kern if "block_attn" in e.key]
     k1_s = sum(dev_us(e) for e in k1) / 1e6
+    # K3's pass 1 (``fused_step_wgmma`` bf16, ``fused_step_partial`` f32)
+    k3 = [e for e in kern if "fused_step_wgmma" in e.key
+          or "fused_step_partial" in e.key]
+    k3_s = sum(dev_us(e) for e in k3) / 1e6
     log(f"profiled Phase 2 {label} (under the profiler): NFE={res.nfe} "
         f"wall={wall:.3f}s device busy={busy:.3f}s "
         f"({busy / wall:.1%}), {sum(e.count for e in kern)} kernels; "
         f"K5 device {k5:.3f}s ({k5 / busy:.1%} of busy), K6 device "
         f"{k6:.3f}s ({k6 / busy:.1%}); K1/K4 device {k1_s:.4f}s "
-        f"({k1_s / busy:.1%}) over {sum(e.count for e in k1)} launches")
+        f"({k1_s / busy:.1%}) over {sum(e.count for e in k1)} launches; "
+        f"K3 pass 1 device {k3_s:.4f}s ({k3_s / busy:.1%}) over "
+        f"{sum(e.count for e in k3)} launches")
     for e in kern[:10]:
         log(f"  device {dev_us(e) / 1e3:9.2f} ms x{e.count:6d}  "
             f"{e.key[:100]}")
@@ -1592,20 +1746,35 @@ def time_kernels(dev):
     del logits
 
     # K3 at the main path's step: x [256, 4096] bf16, untied head
-    # [4096, 126464] bf16 (1.04 GB)
-    xs = torch.randn((R, M), generator=gen, device=dev).to(torch.bfloat16)
+    # [4096, 126464] bf16 (1.04 GB); and Phase 1's R = 32. No single
+    # PyTorch call computes (conf, tok, above); the bf16 cuBLAS product of
+    # the same operands (the logits alone, in bf16) is printed beside it
+    # as a yardstick for the product.
     w = (torch.randn((M, V), generator=gen, device=dev) * M ** -0.5).to(
         torch.bfloat16)
-    tau = torch.full((R,), 1e-4, device=dev)
-    masked = torch.ones((R,), dtype=torch.bool, device=dev)
-    res["fused_step"] = dict(
-        ms=cuda_ms(lambda i: k3(xs, w, tau, masked, tied=False), 10),
-        plain_ms=cuda_ms(lambda i: ref.fused_step_ref(xs, w, tau, masked,
-                                                      tied=False), 5),
-        library_ms=None,
-        bound=bound(M * V * 2 + R * M * 2 + R * 5 + R * 9, 2 * R * M * V,
-                    BF16_OPS_PER_S))
-    del xs, w
+    for rows in (R, BLOCK):
+        xs = torch.randn((rows, M), generator=gen, device=dev).to(
+            torch.bfloat16)
+        tau = torch.full((rows,), 1e-4, device=dev)
+        masked = torch.ones((rows,), dtype=torch.bool, device=dev)
+        r = dict(
+            ms=cuda_ms(lambda i: k3(xs, w, tau, masked, tied=False), 10),
+            plain_ms=cuda_ms(lambda i: ref.fused_step_ref(
+                xs, w, tau, masked, tied=False), 5),
+            library_ms=None,
+            bound=bound(M * V * 2 + rows * M * 2 + rows * 5 + rows * 9,
+                        2 * rows * M * V, BF16_OPS_PER_S))
+        cublas = cuda_ms(lambda i: xs @ w, 10)
+        log(f"time fused_step R={rows} [{M}, {V}] bf16 (graph replay, "
+            f"median of 5): kernel {r['ms'][0]:.4f} ms [{r['ms'][1]:.4f}-"
+            f"{r['ms'][2]:.4f}], plain {r['plain_ms'][0]:.4f} ms, bound "
+            f"{r['bound'][0]:.4f} ms ({r['bound'][1]}); bf16 cuBLAS "
+            f"product of the same operands (logits only, a yardstick): "
+            f"{cublas[0]:.4f} ms [{cublas[1]:.4f}-{cublas[2]:.4f}]")
+        if rows == R:
+            res["fused_step"] = r
+        del xs
+    del w
     torch.cuda.empty_cache()
     res.update(time_quantized_matmul(gen, dev))
     res.update(time_quantized_fused_step(gen, dev))

@@ -1,10 +1,11 @@
 // Hopper (sm_90a) building blocks for a TMA-fed tensor-core kernel, used
-// by the int8 matmul kernel (K5): mbarriers that pass shared-memory
-// stages between the TMA and the warps, TMA tile loads that complete on
-// an mbarrier, the proxy fence that makes shared memory written by
-// threads (st.shared) visible to wgmma, and wgmma itself (m64nNk16,
-// bf16 x bf16 -> f32, A from registers, B from shared memory) with its
-// shared-memory descriptor.
+// by the int8 matmul kernel (K5) and the bf16 fused step (K3): mbarriers
+// that pass shared-memory stages between the TMA and the warps, TMA tile
+// loads that complete on an mbarrier, the proxy fence that makes shared
+// memory written by threads (st.shared) visible to wgmma, wgmma itself
+// (m64nNk16, bf16 x bf16 -> f32, A from registers, B from shared memory)
+// with its shared-memory descriptor, and, on the host, the driver's
+// tensor-map encoder.
 //
 // Shared operand layout: K-major, 128-byte swizzle. A tile of
 // `rows` x 64 bf16 lies row after row, 128 bytes a row, in a 1024-byte
@@ -21,6 +22,8 @@
 // holds row 16w + g + 8 (e >> 1), column 8j + 2t + (e & 1).
 #pragma once
 
+#include <cuda.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "mma_bf16.cuh"  // smem_addr
@@ -258,4 +261,35 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
     wgmma_m64n128k16_rs(d, a, desc_b);
   else
     wgmma_m64n64k16_rs(d, a, desc_b);
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no link
+// against libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault,
+                                         &res) != cudaSuccess ||
+        res != cudaDriverEntryPointSuccess)
+      return nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &res) != cudaSuccess ||
+        res != cudaDriverEntryPointSuccess)
+      return nullptr;
+#endif
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
 }

@@ -9,11 +9,13 @@ reach device memory, and the kernel emits ``(conf, tok, above)``.
 dequantized in float32 as it streams. Source: ``csrc/fused_step.cu``. A
 CPU tensor goes to the plain version (``ref.fused_step_ref``,
 ``ref.quantized_fused_step_ref``); a CUDA tensor launches the kernel or
-raises.
+raises. The bf16 K3 runs on ``wgmma`` in a block shape that
+:func:`plan` picks per call.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -22,13 +24,40 @@ from repro_torch.kernels.ref import fused_step_ref, quantized_fused_step_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "fused_step": (ctypes.c_int, [_P] * 10 + [_I] * 7 + [_P]),
+    "fused_step": (ctypes.c_int, [_P] * 10 + [_I] * 10 + [_P]),
     "quantized_fused_step": (ctypes.c_int, [_P] * 11 + [_I] * 7 + [_P]),
 }
 
-_VT = 128          # vocab columns per tile (csrc/fused_step.cu kVT, kFN)
+# the bf16 K3 body's block shapes (csrc/fused_step.cu launch_bf16):
+# (rows of x, vocab columns)
+_TILES = ((256, 128), (128, 128), (64, 128))
+_F32_VT = 128       # the f32 K3 body's vocab tile (csrc/fused_step.cu kVT)
+_K6_VT = 128        # K6's vocab tile (csrc/qmm_f32.cuh kFN)
+_MAX_GRID_Y = 65535  # the vocab tiles, on grid y
 _ROWS_FINISH = 8    # rows per finishing block in threshold mode (32
                     # lanes merge each row's partials)
+
+
+class Plan(NamedTuple):
+    """The bf16 K3 launch: ``tile`` indexes ``_TILES``; ``rows`` x
+    ``width`` is the block (x rows by vocab columns, one partial per row
+    and ``width`` columns); ``tma`` feeds the ring by TMA, else by plain
+    loads into the same layouts."""
+    tile: int
+    rows: int
+    width: int
+    tma: bool
+
+
+def plan(R: int, V: int, tied: bool, aligned: bool) -> Plan:
+    """The bf16 K3 block for R rows and a V-column head: the fewest rows
+    of 64, 128 and 256 that hold R (256 past that) x 128 columns. TMA
+    needs 16-byte aligned rows: ``aligned`` says so of x and the base
+    pointers, and an untied head's rows (V bf16) must be too. Every block
+    runs the whole K loop, so a logit's sums do not depend on the block
+    shape."""
+    tile = 2 if R <= 64 else 1 if R <= 128 else 0
+    return Plan(tile, *_TILES[tile], tma=aligned and (tied or V % 8 == 0))
 
 
 def _check_rows(x, quota: int, group: int) -> None:
@@ -50,10 +79,11 @@ def _plain(fn, x, tau, masked, quota: int, group: int):
     return conf.reshape(R), tok.reshape(R), above.reshape(R)
 
 
-def _launch(entry: str, x, operands, tau, masked, V: int, tied: bool,
-            quota: int, group: int):
-    """Checks the row operands, allocates the partials and outputs, and
-    calls ``entry`` with the head ``operands`` (pointers) after x."""
+def _launch(entry: str, x, operands, tau, masked, V: int, width: int,
+            tied: bool, quota: int, group: int, extra=()):
+    """Checks the row operands, allocates ``ceil(V / width)`` partials a
+    row and the outputs, and calls ``entry`` with the head ``operands``
+    (pointers) after x and the ints ``extra`` before the stream."""
     R, M = x.shape
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"fused step kernel takes bf16 or f32, not {x.dtype}")
@@ -67,7 +97,9 @@ def _launch(entry: str, x, operands, tau, masked, V: int, tied: bool,
         raise ValueError("fused step operands must be contiguous and on one "
                          "device")
     dev = x.device
-    ntiles = -(-V // _VT)
+    ntiles = -(-V // width)
+    if ntiles > _MAX_GRID_Y:
+        raise ValueError(f"V={V} exceeds the kernel's grid")
     part_m = torch.empty((ntiles, R), dtype=torch.float32, device=dev)
     part_s = torch.empty((ntiles, R), dtype=torch.float32, device=dev)
     part_i = torch.empty((ntiles, R), dtype=torch.int32, device=dev)
@@ -80,10 +112,22 @@ def _launch(entry: str, x, operands, tau, masked, V: int, tied: bool,
         masked.data_ptr(), part_m.data_ptr(), part_s.data_ptr(),
         part_i.data_ptr(), conf.data_ptr(), tok.data_ptr(), above.data_ptr(),
         R, M, V, int(tied), int(x.dtype == torch.bfloat16), int(quota),
-        group if quota else _ROWS_FINISH,
+        group if quota else _ROWS_FINISH, *extra,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, entry)
     return conf, tok, above
+
+
+def fused_step_plain(x: torch.Tensor, w: torch.Tensor, tau: torch.Tensor,
+                     masked: torch.Tensor, *, tied: bool, quota: int = 0,
+                     group: int = 0):
+    """The plain version of :func:`fused_step_kernel` on any device, in
+    its signature (``ref.fused_step_ref`` per ranking group)."""
+    _check_rows(x, quota, group)
+
+    def plain(x, tau, masked, quota):
+        return fused_step_ref(x, w, tau, masked, tied=tied, quota=quota)
+    return _plain(plain, x, tau, masked, quota, group)
 
 
 def fused_step_kernel(x: torch.Tensor, w: torch.Tensor, tau: torch.Tensor,
@@ -95,19 +139,26 @@ def fused_step_kernel(x: torch.Tensor, w: torch.Tensor, tau: torch.Tensor,
     ``quota > 0`` ranks inside each group of ``group`` consecutive rows
     (one batch row's block) instead of comparing with ``tau``.
     """
-    _check_rows(x, quota, group)
     if x.device.type == "cpu":
-        def plain(x, tau, masked, quota):
-            return fused_step_ref(x, w, tau, masked, tied=tied, quota=quota)
-        return _plain(plain, x, tau, masked, quota, group)
+        return fused_step_plain(x, w, tau, masked, tied=tied, quota=quota,
+                                group=group)
+    _check_rows(x, quota, group)
     if x.device.type != "cuda":
         raise ValueError(f"no fused step kernel for {x.device}")
-    M = x.shape[1]
+    R, M = x.shape
     V = w.shape[0] if tied else w.shape[1]
     if tuple(w.shape) != ((V, M) if tied else (M, V)) or w.dtype != x.dtype:
         raise ValueError(f"head {tuple(w.shape)} {w.dtype} does not match "
                          f"x {tuple(x.shape)} {x.dtype} (tied={tied})")
-    out = _launch("fused_step", x, (w,), tau, masked, V, tied, quota, group)
+    if x.dtype == torch.bfloat16:
+        aligned = M % 8 == 0 and x.data_ptr() % 16 == 0 and \
+            w.data_ptr() % 16 == 0
+        p = plan(R, V, tied, aligned)
+        width, extra = p.width, (p.tile, int(p.tma))
+    else:
+        width, extra = _F32_VT, (0, 0)
+    out = _launch("fused_step", x, (w,), tau, masked, V, width, tied, quota,
+                  group, extra + (-(-V // width),))
     fused_step_kernel.launches += 1
     return out
 
@@ -144,7 +195,7 @@ def quantized_fused_step_kernel(x: torch.Tensor, q: torch.Tensor,
         raise ValueError(f"scale {tuple(scale.shape)} {scale.dtype} is not "
                          f"{V} float32 values")
     out = _launch("quantized_fused_step", x, (q, scale), tau, masked, V,
-                  tied, quota, group)
+                  _K6_VT, tied, quota, group)
     quantized_fused_step_kernel.launches += 1
     return out
 

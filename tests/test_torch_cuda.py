@@ -18,6 +18,7 @@ from repro_torch.kernels.block_attention import (
 from repro_torch.kernels.confidence import fused_confidence_kernel
 from repro_torch.kernels.flash_attention import flash_attention_kernel
 from repro_torch.kernels.fused_step import (fused_step_kernel,
+                                            fused_step_plain,
                                             quantized_fused_step_kernel)
 from repro_torch.kernels.quantized_matmul import quantized_matmul_kernel
 from repro_torch.models.quantize import quantize_tensor
@@ -225,6 +226,62 @@ def test_fused_step_kernel(dev, tied, quota):
                                    group=8 if quota else 0)
     torch.testing.assert_close(conf.cpu(), rc, rtol=1e-5, atol=0)
     assert torch.equal(tok.cpu(), rt) and torch.equal(above.cpu(), ra)
+
+
+# bf16 K3 on wgmma (the wrapper's plan in brackets):
+# (R, M, V, tied, quota)
+_K3_BF16_CASES = [
+    (1, 512, 1000, False, 0),      # one row (64 x 128, TMA)
+    (32, 512, 1000, True, 0),      # Phase 1's rows, tied (64 x 128, TMA)
+    (40, 200, 1000, False, 0),     # M not a multiple of 64 (64 x 128, TMA)
+    (40, 512, 20000, False, 0),    # 64 x 128, TMA
+    (40, 100, 1000, True, 0),      # tied, rows of 200 bytes (plain loads)
+    (256, 512, 3001, False, 0),    # untied rows of 6002 bytes (plain)
+    (256, 320, 5000, True, 0),     # 256 x 128, ragged V (TMA)
+    (300, 512, 2000, False, 0),    # two 256-row tiles (TMA)
+    (300, 200, 1003, True, 0),     # tied, ragged R and V (TMA)
+    (128, 512, 3001, False, 4),    # quota, group 32 (128 x 128, plain)
+    (96, 256, 20000, False, 0),    # 128 x 128, TMA
+    (256, 4096, 126464, False, 0),  # the main path's step (256 x 128)
+    (32, 4096, 126464, False, 0),   # Phase 1's step (64 x 128)
+]
+
+
+@pytest.mark.parametrize("R,M,V,tied,quota", _K3_BF16_CASES)
+def test_fused_step_kernel_bf16(dev, R, M, V, tied, quota):
+    """bf16 x and head: every product is exact in f32, so the kernel and
+    the plain version differ only in the order of the f32 sums, at most
+    ~M 2^-24 sum|x w| a logit (chip_smoke.py's K3 check): conf within
+    1e-3 relative, tokens equal where the plain top-2 gap exceeds twice
+    that, ``above`` equal where conf is 1e-3 relative away from tau; and
+    the same bits twice."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = _rand(g, R, M, dev=dev).to(torch.bfloat16)
+    w = (_rand(g, *((V, M) if tied else (M, V)), dev=dev)
+         * M ** -0.5).to(torch.bfloat16)
+    logits = ref.unembed(w, x, transpose=tied)
+    c0, _ = ref.confidence_ref(logits)
+    tau = c0 * torch.where(torch.rand(R, generator=g, device=dev) < 0.5,
+                           0.8, 1.25)
+    masked = torch.rand(R, generator=g, device=dev) < 0.8
+    group = 32 if quota else 0
+    out = fused_step_kernel(x, w, tau, masked, tied=tied, quota=quota,
+                            group=group)
+    again = fused_step_kernel(x, w, tau, masked, tied=tied, quota=quota,
+                              group=group)
+    rc, rt, ra = fused_step_plain(x, w, tau, masked, tied=tied, quota=quota,
+                                  group=group)
+    conf, tok, above = out
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    sabs = ref.unembed(w.abs(), x.abs(), transpose=tied)
+    clear = -logits.topk(2, dim=-1).values.diff(dim=-1)[:, 0] > \
+        2 * M * 2.0 ** -24 * sabs.amax(dim=-1)
+    far = torch.ones_like(masked) if quota else \
+        (rc - tau).abs() > 1e-3 * rc
+    assert float(((conf - rc).abs() / rc).max()) <= 1e-3
+    assert not bool(((tok != rt) & clear).any())
+    assert not bool(((above != ra) & far).any())
 
 
 @pytest.mark.parametrize("R,K,N", [

@@ -254,3 +254,72 @@ def test_int8_replay_rejects_k5_faults_in_first_forwards(int8_setup, name):
                                   forwards=cs.K5_FAULT_FORWARDS)
     assert len(rows) == cs.K5_FAULT_FORWARDS
     assert not cs.replay_ok(rows)
+
+
+# ---------------------------------------------------------------------------
+# the K3 replay: the fused step kernel against the plain fused step
+# ---------------------------------------------------------------------------
+
+def test_k3_replay_reports_zero_difference(setup):
+    """On the CPU K3's wrapper takes the plain fused step, which the replay
+    also drives with: one row per denoising forward, each equal, the
+    decode is the plain fused decode, and the wrapper is restored."""
+    from repro_torch.kernels.fused_step import fused_step_kernel as k3
+
+    cfg, dcfg, params, prompts, store = setup
+    res, rows = cs.k3_replay_rows(params, cfg, dcfg, store, prompts, k3)
+    assert rows and {r["kind"] for r in rows} == {"step"}
+    assert all(r["kernel"]["max_dconf"] == 0.0 and r["kernel"]["agree"] == 1.0
+               and r["kernel"]["above_mismatch"] == 0 for r in rows)
+    assert cs.replay_ok(rows)
+    assert kops.fused_step_kernel is k3
+    plain = OSDTSession(params, cfg, dcfg, tok.MASK_ID, store=store,
+                        gen_fn=make_generate_fn(cfg, dcfg,
+                                                attn_impl="kernel"))
+    want = plain.generate(prompts)
+    assert torch.equal(res.tokens, want.tokens) and res.nfe == want.nfe
+
+
+@pytest.mark.parametrize("name", sorted(cs.K3_REPLAY_FAULTS))
+def test_k3_replay_rejects_emulated_faults(setup, name):
+    """Each K3 fault that the card check emulates (logits 10% high, the
+    contraction's last 1/16 dropped, the upper half of the vocabulary
+    hidden) moves the checked fused step past the bars, while the plain
+    fused step still drives the same decode."""
+    from repro_torch.kernels.fused_step import fused_step_kernel as k3
+
+    cfg, dcfg, params, prompts, store = setup
+    res, rows = cs.k3_replay_rows(params, cfg, dcfg, store, prompts,
+                                  cs.K3_REPLAY_FAULTS[name](k3))
+    assert not cs.replay_ok(rows)
+    want, _ = cs.k3_replay_rows(params, cfg, dcfg, store, prompts, k3)
+    assert torch.equal(res.tokens, want.tokens) and res.nfe == want.nfe
+
+
+def test_k3_compare_reads_masked_positions():
+    """conf and argmax are read over the masked positions (every position
+    when none is masked); ``above`` over the positions whose conf is
+    1e-3 relative away from tau, or every position without tau."""
+    conf = torch.tensor([0.5, 0.2, 0.4, 0.1])
+    tok = torch.tensor([1, 2, 3, 4], dtype=torch.int32)
+    tau = torch.tensor([0.3, 0.2, 0.4002, 0.05])
+    masked = torch.tensor([True, False, True, True])
+    above = masked & (conf > tau)
+    got_conf = conf.clone()
+    got_conf[1] = 0.9                      # unmasked: not read
+    got_conf[2] = 0.4005                   # masked, crosses tau (near)
+    got_tok = tok.clone()
+    got_tok[3] = 7
+    got = (got_conf, got_tok, masked & (got_conf > tau))
+    r = cs.k3_compare((conf, tok, above), got, masked, tau)
+    # float32 differences: within a float32 step of 0.4
+    assert r["max_dconf"] == pytest.approx(0.0005, rel=1e-3)
+    assert r["share"] == pytest.approx(0.0005 / 0.5, rel=1e-3)
+    assert r["agree"] == pytest.approx(2 / 3) and r["n"] == 3
+    # position 2 flips `above` but sits within 1e-3 of tau; position 1
+    # (conf == tau) is near too
+    assert r["above_mismatch"] == 0 and r["above_far"] == 2
+    r = cs.k3_compare((conf, tok, above), got, masked, None)
+    assert r["above_mismatch"] == 1 and r["above_far"] == 4
+    r = cs.k3_compare((conf, tok, above), got, torch.zeros_like(masked), tau)
+    assert r["n"] == 4 and r["max_dconf"] == pytest.approx(0.7, rel=1e-6)
