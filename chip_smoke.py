@@ -7,18 +7,21 @@ Needs one CUDA device and exits non-zero without one. In order it:
      CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc each, in
      parallel);
   2. holds each kernel against its plain PyTorch version on the card, in
-     bf16 at the main path's shapes and on edge cases, and the paged block
+     bf16 at the main path's shapes and on edge cases, the paged block
      attention kernel (K4) bit for bit against the dense one (K1) on the
-     gathered view;
+     gathered view, and the int8-head fused step (K6) against the int8
+     matmul's float32 head (K5), which share one body: K6's tokens are the
+     argmax of K5's logits;
   3. drives the main path: OSDT decode (Phase 1 on one row, Phase 2 on the
      batch) of LLaDA-8B at full width and depth with random weights from a
      seed, through ``OSDTSession`` with the block attention and fused step
      kernels, then the same batch through the unfused epilogue with the
      confidence kernel, counting every kernel launch; then, outside the
-     counts, the teacher-forced replay (the same fused Phase 2 driven by
-     the plain block attention, the kernel run on the same inputs and
-     cache at every forward: each forward's conf and argmax must follow,
-     and the same replay under three emulated kernel faults must fail),
+     counts, the fused Phase 2 once more, warm, the teacher-forced replay
+     (the same fused Phase 2 driven by the plain block attention, the
+     kernel run on the same inputs and cache at every forward: each
+     forward's conf and argmax must follow, and the same replay under
+     three emulated kernel faults must fail),
      the K3 replay (the same fused Phase 2 driven by the plain fused step,
      the fused step kernel run on the same inputs at every denoising
      forward, held to the same bars, and the same replay under three
@@ -34,8 +37,12 @@ Needs one CUDA device and exits non-zero without one. In order it:
      the int8 matmul kernel (K5) in every projection and the head, the
      same Phase 2 on the dequantized weights through the bf16 path, and
      the same Phase 2 through the fused int8 epilogue (K6), which must
-     decode as the unfused int8 run does, then, outside the counts, the
-     int8 teacher-forced replay (the unfused int8 Phase 2 driven by the
+     decode as the unfused int8 run does, then, outside the counts, that
+     Phase 2 once more, warm, the K6 replay (the fused int8 Phase 2 driven
+     by the plain int8 fused step, K6 run on the same inputs at every
+     denoising forward, held to the same bars, and the same replay under
+     three emulated K6 faults, which must fail them), the int8
+     teacher-forced replay (the unfused int8 Phase 2 driven by the
      plain int8 matmul, K5 run on the same inputs and cache at every
      forward and held to the block attention replay's bars, and the same
      replay under three emulated K5 faults, which must fail); then the
@@ -197,7 +204,7 @@ def check_kernels(dev):
     from repro_torch.kernels.confidence import fused_confidence_kernel as k2
     from repro_torch.kernels.fused_step import fused_step_kernel as k3
     from repro_torch.kernels.fused_step import fused_step_plain
-    from repro_torch.kernels.fused_step import plan as k3_plan
+    from repro_torch.kernels.head import plan as k3_plan
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.ops import cached_block_attention as k1
     from repro_torch.models.layers import unembed
@@ -371,6 +378,7 @@ def check_kernels(dev):
 
     errs["quantized_matmul"] = check_quantized_matmul(gen, dev)
     errs["quantized_fused_step"] = check_quantized_fused_step(gen, dev)
+    check_shared_head_body(gen, dev)
     errs["flash_attention"] = check_flash_attention(gen, dev)
     return errs
 
@@ -386,54 +394,63 @@ def f32_close(out, want):
 
 def check_quantized_matmul(gen, dev):
     """K5 against its plain version at the main path's shapes (bf16 block
-    step R = 256 and prefill R = 1024 over LLaDA-8B's projections, the
-    f32 head at R = 256), the transposed layout, and a ragged shape in
-    both layouts and dtypes; a second launch of each bf16 block-step
-    shape must give the same bits. Returns the main case's max abs
-    error."""
+    step R = 256 and prefill R = 1024 over LLaDA-8B's projections; the
+    head as the main path calls it, bf16 x with float32 out, at R = 32,
+    128, 256 and 1024, and with f32 x, three terms, at R = 256), the
+    transposed layout, and a ragged shape in both layouts and dtypes; a
+    second launch of each bf16 block-step shape and of the head at R = 256
+    must give the same bits. Returns the main case's max abs error."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.quantized_matmul import \
         quantized_matmul_kernel as k5
     from repro_torch.models.quantize import quantize_tensor
 
     M, F, V = 4096, 12288, 126464
-    cases = [(f"bf16 R={R} [{K}, {N}]", R, K, N, False, torch.bfloat16)
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [(f"bf16 R={R} [{K}, {N}]", R, K, N, False, bf, bf)
              for R in (BATCH * BLOCK, BATCH * PROMPT)
              for K, N in ((M, M), (M, F), (F, M))]
     cases += [
-        (f"bf16 R=256 [{M}, {M}] transposed", 256, M, M, True,
-         torch.bfloat16),
-        (f"f32 head R=256 [{M}, {V}]", 256, M, V, False, torch.float32),
+        (f"bf16 R=256 [{M}, {M}] transposed", 256, M, M, True, bf, bf),
+        # the head at every row count of the int8 decode (R = 32 and 128:
+        # Phase 1's step and prefill), so every block of the plan
+        *((f"head R={R} [{M}, {V}] bf16 x f32 out", R, M, V, False, bf,
+           f32) for R in (BLOCK, PROMPT, BATCH * BLOCK, BATCH * PROMPT)),
+        ("tied head R=256 [32000, 4096] transposed bf16 x f32 out", 256, M,
+         32000, True, bf, f32),
+        (f"f32 head R=256 [{M}, {V}]", 256, M, V, False, f32, f32),
         ("f32 tied head R=256 [32000, 4096] transposed", 256, M, 32000,
-         True, torch.float32),
+         True, f32, f32),
     ]
-    cases += [(f"{'bf16' if dt == torch.bfloat16 else 'f32'} ragged "
+    cases += [(f"{'bf16' if dt == bf else 'f32'} ragged "
                f"(13, 200, 513){' transposed' if tr else ''}", 13, 200, 513,
-               tr, dt) for dt in (torch.bfloat16, torch.float32)
-              for tr in (False, True)]
+               tr, dt, dt) for dt in (bf, f32) for tr in (False, True)]
+    cases += [(f"ragged (13, 200, 513){' transposed' if tr else ''} bf16 x "
+               f"f32 out", 13, 200, 513, tr, bf, f32) for tr in (False, True)]
     main = None
-    for name, R, K, N, tr, dt in cases:
+    for name, R, K, N, tr, dt, od in cases:
         x = torch.randn((R, K), generator=gen, device=dev).to(dt)
         w = torch.randn((N, K) if tr else (K, N), generator=gen,
                         device=dev) * K ** -0.5
         qt = quantize_tensor(w, axis=-1 if tr else -2)
         del w
-        out = k5(x, qt.q, qt.scale, transpose=tr)
-        want = ref.quantized_matmul_ref(x, qt.q, qt.scale, transpose=tr)
+        out = k5(x, qt.q, qt.scale, transpose=tr, out_dtype=od)
+        want = ref.quantized_matmul_ref(x, qt.q, qt.scale, transpose=tr,
+                                        out_dtype=od)
         torch.cuda.synchronize()
-        if dt == torch.bfloat16:
+        if od == bf:
             ok, err = bf16_close(out, want)
             tol = "2^-7 relative + 1e-4"
         else:
             ok, err = f32_close(out, want)
             tol = "1e-4 rms"
         log(f"K5 {name}: max_abs_err={err:.3e} (tolerance {tol})")
-        check(ok and out.dtype == dt and out.shape == (R, N),
+        check(ok and out.dtype == od and out.shape == (R, N),
               f"K5 {name} within {tol}")
         if name == f"bf16 R=256 [{M}, {F}]":
             main = err
-        if R == BATCH * BLOCK and not tr and dt == torch.bfloat16:
-            again = k5(x, qt.q, qt.scale, transpose=tr)
+        if R == BATCH * BLOCK and not tr and dt == bf:
+            again = k5(x, qt.q, qt.scale, transpose=tr, out_dtype=od)
             check(torch.equal(out, again), f"K5 {name}: two launches give "
                   f"the same bits")
             log(f"K5 {name}: a second launch gives the same bits")
@@ -514,6 +531,47 @@ def check_quantized_fused_step(gen, dev):
     return main
 
 
+def check_shared_head_body(gen, dev):
+    """K6 and K5's float32 head share one body: on the main step's inputs
+    (x [256, 4096] bf16 on LLaDA-8B's untied int8 head), K6's tokens must
+    be the argmax of K5's head logits exactly and its conf within 1e-6
+    relative of K2's on those logits (the two reduce the same logits in
+    another order), and two launches of each must give the same bits."""
+    from repro_torch.kernels.confidence import fused_confidence_kernel as k2
+    from repro_torch.kernels.fused_step import \
+        quantized_fused_step_kernel as k6
+    from repro_torch.kernels.quantized_matmul import \
+        quantized_matmul_kernel as k5
+    from repro_torch.models.quantize import quantize_tensor
+
+    R, M, V = BATCH * BLOCK, 4096, 126464
+    x = torch.randn((R, M), generator=gen, device=dev).to(torch.bfloat16)
+    qt = quantize_tensor(torch.randn((M, V), generator=gen, device=dev)
+                         * M ** -0.5, axis=-2)
+    logits = k5(x, qt.q, qt.scale, transpose=False, out_dtype=torch.float32)
+    again = k5(x, qt.q, qt.scale, transpose=False, out_dtype=torch.float32)
+    c2, _ = k2(logits)
+    tau = c2 * torch.where(torch.rand(R, generator=gen, device=dev) < 0.5,
+                           0.8, 1.25)
+    masked = torch.rand(R, generator=gen, device=dev) < 0.8
+    out = k6(x, qt.q, qt.scale, tau, masked, tied=False)
+    out2 = k6(x, qt.q, qt.scale, tau, masked, tied=False)
+    torch.cuda.synchronize()
+    conf, tok, _ = out
+    mism = int((tok != torch.argmax(logits, dim=-1).to(torch.int32)).sum())
+    rel = float(((conf - c2).abs() / c2).max())
+    same = torch.equal(logits, again) and all(
+        torch.equal(a, b) for a, b in zip(out, out2))
+    log(f"K6 vs K5's head on the main step: token mismatches against the "
+        f"argmax of K5's logits={mism}/{R}, conf_rel_err against K2 on "
+        f"them={rel:.3e}, same_bits_twice={same}")
+    check(mism == 0 and rel <= 1e-6, "K6's tokens are the argmax of K5's "
+          "head logits and its conf within 1e-6 relative of K2 on them")
+    check(same, "K5's head and K6 give the same bits twice")
+    del x, qt, logits, again
+    torch.cuda.empty_cache()
+
+
 def bf16_attention_close(out, want, pv):
     """Elementwise |out - want| <= 2^-7 (|want| + P|V|): both round the
     output to bf16 once (at most one step, 2^-7 relative, apart), and the
@@ -586,6 +644,8 @@ def check_flash_attention(gen, dev):
 def reset_counts(kernels):
     for k in kernels.values():
         k.launches = 0
+        if hasattr(k, "head_launches"):  # K5's float32 outputs
+            k.head_launches = 0
 
 
 def read_counts(kernels):
@@ -755,6 +815,8 @@ def main_path(dev, kernels):
     match = float((out["phase2_osdt_fused"][0].tokens
                    == out["phase2_osdt_unfused"][0].tokens).float().mean())
     log(f"fused vs unfused Phase-2 token match rate: {match:.4f}")
+    warm_repeat(session, prompts, "phase2_osdt_fused", *out[
+        "phase2_osdt_fused"])
     log(f"peak device memory: {torch.cuda.max_memory_allocated() / 1e9:.2f}"
         f" GB")
     # compare-only phases: their launches are outside every path's count
@@ -774,6 +836,22 @@ def main_path(dev, kernels):
     torch.cuda.empty_cache()
     return {n: counts[n] + paged_counts[n] + int8_counts[n] + flash_counts[n]
             for n in counts}
+
+
+def warm_repeat(session, prompts, label, first, first_secs):
+    """The same Phase 2 once more, warm and outside the launch counts: its
+    ms/forward beside the first run's (a first call's cost shows as the
+    difference), and whether it decodes the same tokens."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = session.generate(prompts)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    log(f"{label} warm repeat (outside the counts): NFE={res.nfe} "
+        f"wall={secs:.3f}s ms/forward={secs / res.nfe * 1e3:.2f}; first "
+        f"run: NFE={first.nfe} wall={first_secs:.3f}s "
+        f"ms/forward={first_secs / first.nfe * 1e3:.2f}; same tokens: "
+        f"{torch.equal(res.tokens, first.tokens)}")
 
 
 def int8_path(dev, kernels, params, cfg, dcfg, prompts):
@@ -820,12 +898,14 @@ def int8_path(dev, kernels, params, cfg, dcfg, prompts):
         torch.cuda.synchronize()
         out[phase] = (res, time.perf_counter() - t0)
     counts = read_counts(kernels)
+    heads = kernels["quantized_matmul"].head_launches
     nfe = sum(res.nfe for res, _ in out.values())
     per_forward = 7 * cfg.num_layers + 1
     log(f"launches, int8 session (both phases, {nfe} forwards): {counts}")
     check(counts["quantized_matmul"] == per_forward * nfe,
           f"K5 launched {per_forward} times a forward (7 projections x "
           f"{cfg.num_layers} layers + the head)")
+    check(heads == nfe, "K5's float32 head launched once a forward")
     check(counts["confidence"] > 0 and counts["block_attention"] > 0,
           "the int8 session launched K2 and K1")
     check(all(counts[n] == 0 for n in ("fused_step", "paged_block_attention",
@@ -888,6 +968,7 @@ def int8_path(dev, kernels, params, cfg, dcfg, prompts):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     fcounts = read_counts(kernels)
+    fheads = kernels["quantized_matmul"].head_launches
     toks = res_f.tokens
     check(tuple(toks.shape) == (len(prompts), NEW)
           and not bool((toks == tok.MASK_ID).any())
@@ -917,8 +998,15 @@ def int8_path(dev, kernels, params, cfg, dcfg, prompts):
           "the fused int8 run ran no K2, K3, K4 or K7")
     check(res_f.nfe == res_q.nfe and match >= 0.99,
           "the fused int8 Phase 2 decodes as the unfused one does")
+    check(fheads == res_f.nfe - denoise, "K5's float32 head launched once "
+          "a prefill and commit forward of the fused int8 Phase 2")
+    log(f"K5 float32 head launches (main run): {heads + fheads} (int8 "
+        f"session {heads}, one a forward; fused int8 Phase 2 {fheads}, one a "
+        f"prefill and commit forward)")
     total = {n: counts[n] + fcounts[n] for n in counts}
-    # compare-only: its launches are outside every path's count
+    # compare-only: their launches are outside every path's count
+    warm_repeat(fused, prompts, "int8_phase2_osdt_fused", res_f, secs)
+    k6_replay_path(qparams, cfg, fdcfg, session.store, prompts)
     int8_replay_path(qparams, cfg, qdcfg, session.store, prompts)
     return total, {"int8 unfused": session, "int8 fused": fused}
 
@@ -1290,7 +1378,17 @@ class K3Replay:
     """While active, ``kernels.ops`` takes the plain fused step for the
     fused epilogue, after running ``kernel`` (K3's wrapper, or a fault
     around it) on the same inputs; each call adds one row to ``rows``,
-    :func:`k3_compare` of the two under ``"kernel"``."""
+    :func:`k3_compare` of the two under ``"kernel"``. ``wrapper`` names
+    the swapped entry of ``kernels.ops`` and ``plain`` its plain version
+    (K6's, in :class:`K6Replay`)."""
+
+    wrapper = "fused_step_kernel"
+
+    @staticmethod
+    def plain(*args, **kw):
+        from repro_torch.kernels.fused_step import fused_step_plain
+
+        return fused_step_plain(*args, **kw)
 
     def __init__(self, kernel):
         self.kernel = kernel
@@ -1299,23 +1397,34 @@ class K3Replay:
     def __enter__(self):
         from repro_torch.kernels import ops as kops
 
-        self.kops, self.saved = kops, kops.fused_step_kernel
-        kops.fused_step_kernel = self.step
+        self.kops, self.saved = kops, getattr(kops, self.wrapper)
+        setattr(kops, self.wrapper, self.step)
         return self
 
     def __exit__(self, *exc):
-        self.kops.fused_step_kernel = self.saved
+        setattr(self.kops, self.wrapper, self.saved)
 
-    def step(self, x, w, tau, masked, *, tied, quota=0, group=0):
-        from repro_torch.kernels.fused_step import fused_step_plain
-
-        got = self.kernel(x, w, tau, masked, tied=tied, quota=quota,
-                          group=group)
-        want = fused_step_plain(x, w, tau, masked, tied=tied, quota=quota,
-                                group=group)
+    def step(self, *args, tied, quota=0, group=0):
+        """``args``: x, the head's operands, tau, masked."""
+        tau, masked = args[-2:]
+        got = self.kernel(*args, tied=tied, quota=quota, group=group)
+        want = self.plain(*args, tied=tied, quota=quota, group=group)
         self.rows.append({"kind": "step", "kernel": k3_compare(
             want, got, masked, None if quota else tau)})
         return want
+
+
+class K6Replay(K3Replay):
+    """:class:`K3Replay` for the int8 head's fused step (K6), the plain
+    ``quantized_fused_step_plain`` driving."""
+
+    wrapper = "quantized_fused_step_kernel"
+
+    @staticmethod
+    def plain(*args, **kw):
+        from repro_torch.kernels.fused_step import quantized_fused_step_plain
+
+        return quantized_fused_step_plain(*args, **kw)
 
 
 def k3_compare(want, got, masked, tau=None):
@@ -1359,19 +1468,64 @@ K3_REPLAY_FAULTS = {
 }
 
 
-def k3_replay_rows(params, cfg, dcfg, store, prompts, kernel):
+def k3_replay_rows(params, cfg, dcfg, store, prompts, kernel,
+                   replay=K3Replay):
     """The K3 replay's rows: the fused decode driven by the plain fused
     step, ``kernel`` (K3's wrapper, or a fault around it) checked at
-    every denoising forward: (result, rows)."""
+    every denoising forward: (result, rows). With ``replay=K6Replay`` (and
+    int8 params), the K6 replay's."""
     from repro_torch.core.decoder import make_generate_fn
     from repro_torch.core.osdt import OSDTSession
     from repro_torch.data import tokenizer as tok
 
     s = OSDTSession(params, cfg, dcfg, tok.MASK_ID, store=store,
                     gen_fn=make_generate_fn(cfg, dcfg, attn_impl="kernel"))
-    with K3Replay(kernel) as rp:
+    with replay(kernel) as rp:
         res = s.generate(prompts)
     return res, rp.rows
+
+
+def k6_replay_rows(qparams, cfg, fdcfg, store, prompts, kernel):
+    """The K6 replay's rows: the fused int8 decode driven by the plain
+    int8 fused step, ``kernel`` (K6's wrapper, or a fault around it)
+    checked at every denoising forward: (result, rows)."""
+    return k3_replay_rows(qparams, cfg, fdcfg, store, prompts, kernel,
+                          replay=K6Replay)
+
+
+def step_replay_summary(rows):
+    """A fused-step replay's rows in one line."""
+    k = [r["kernel"] for r in rows]
+    return (f"max |dconf| {max(r['max_dconf'] for r in k):.3e}, worst "
+            f"share {max(r['share'] for r in k):.2%}, lowest "
+            f"argmax agreement {min(r['agree'] for r in k):.4f}, pooled "
+            f"agreement {1 - disagreement(rows, 'kernel'):.4f} over "
+            f"{sum(r['n'] for r in k)} positions, above mismatches "
+            f"{sum(r['above_mismatch'] for r in k)} of "
+            f"{sum(r['above_far'] for r in k)} positions 1e-3 from tau; "
+            "share by forward " + " ".join(f"{r['share']:.2%}" for r in k))
+
+
+def step_replay_path(name, driven, run, kernel, faults):
+    """A fused-step replay (``run(kernel) -> (result, rows)``) gated by
+    :func:`replay_ok`; then the same replay under each fault of
+    ``faults``, which the gate must reject. ``name`` is the kernel's tag
+    (K3, K6) and ``driven`` says what the plain step drives."""
+    res, rows = run(kernel)
+    torch.cuda.synchronize()
+    log(f"{name} teacher-forced replay, {name} against the plain "
+        f"{driven} (NFE {res.nfe}, {len(rows)} denoising forwards): "
+        f"{step_replay_summary(rows)}")
+    check(replay_ok(rows), f"{name} teacher-forced replay: {name}'s conf "
+          f"share <= {REPLAY_CONF_SHARE:.0%} at every forward and its "
+          f"pooled argmax agreement >= {REPLAY_ARGMAX_AGREE}")
+    for fault_name, fault in faults.items():
+        _, rows = run(fault(kernel))
+        caught = not replay_ok(rows)
+        log(f"{name} replay under the emulated fault {fault_name}: "
+            f"{step_replay_summary(rows)}; rejected: {caught}")
+        check(caught, f"the {name} replay's gate rejects the fault "
+              f"{fault_name}")
 
 
 def k3_replay_path(params, cfg, dcfg, store, prompts):
@@ -1381,33 +1535,47 @@ def k3_replay_path(params, cfg, dcfg, store, prompts):
     reject."""
     from repro_torch.kernels.fused_step import fused_step_kernel as k3
 
-    def summary(rows):
-        k = [r["kernel"] for r in rows]
-        return (f"max |dconf| {max(r['max_dconf'] for r in k):.3e}, worst "
-                f"share {max(r['share'] for r in k):.2%}, lowest "
-                f"argmax agreement {min(r['agree'] for r in k):.4f}, pooled "
-                f"agreement {1 - disagreement(rows, 'kernel'):.4f} over "
-                f"{sum(r['n'] for r in k)} positions, above mismatches "
-                f"{sum(r['above_mismatch'] for r in k)} of "
-                f"{sum(r['above_far'] for r in k)} positions 1e-3 from tau; "
-                "share by forward " + " ".join(f"{r['share']:.2%}"
-                                               for r in k))
+    step_replay_path(
+        "K3", "fused step driving the bf16 fused Phase 2",
+        lambda kernel: k3_replay_rows(params, cfg, dcfg, store, prompts,
+                                      kernel), k3, K3_REPLAY_FAULTS)
 
-    res, rows = k3_replay_rows(params, cfg, dcfg, store, prompts, k3)
-    torch.cuda.synchronize()
-    log(f"K3 teacher-forced replay, K3 against the plain fused step "
-        f"driving the bf16 fused Phase 2 (NFE {res.nfe}, {len(rows)} "
-        f"denoising forwards): {summary(rows)}")
-    check(replay_ok(rows), "K3 teacher-forced replay: K3's conf share "
-          f"<= {REPLAY_CONF_SHARE:.0%} at every forward and its pooled "
-          f"argmax agreement >= {REPLAY_ARGMAX_AGREE}")
-    for name, fault in K3_REPLAY_FAULTS.items():
-        _, rows = k3_replay_rows(params, cfg, dcfg, store, prompts,
-                                 fault(k3))
-        caught = not replay_ok(rows)
-        log(f"K3 replay under the emulated fault {name}: {summary(rows)}; "
-            f"rejected: {caught}")
-        check(caught, f"the K3 replay's gate rejects the fault {name}")
+
+# The K6 replay: one fused int8 Phase 2 driven by the plain int8 fused
+# step (``quantized_fused_step_plain`` on the card, in place of
+# ``kernels.ops.quantized_fused_step_kernel``), K6 run on the same (x, q,
+# scale, tau, masked) at every denoising forward, K5 and K1 driving the
+# forwards, gated by the same bars as K1's. Its faults, each emulated
+# around K6's wrapper as a kernel with that fault would compute: every
+# channel scaled by its neighbour's scale, the last 1/16 of the
+# contraction dropped, the upper half of the vocabulary hidden.
+K6_REPLAY_FAULTS = {
+    "scale_one_channel_over": lambda f: (
+        lambda x, q, scale, *a, **k: f(
+            x, q, torch.roll(scale.reshape(-1), 1).reshape(scale.shape), *a,
+            **k)),
+    "last_sixteenth_dropped": lambda f: (
+        lambda x, *a, **k: f(_tail_dropped(x), *a, **k)),
+    "upper_vocab_hidden": lambda f: (
+        lambda x, q, scale, *a, tied, **k: f(
+            x, _lower_vocab(q, tied),
+            scale.reshape(-1)[:scale.numel() // 2].contiguous(), *a,
+            tied=tied, **k)),
+}
+
+
+def k6_replay_path(qparams, cfg, fdcfg, store, prompts):
+    """The K6 replay of the fused int8 Phase 2 (its batch, the unfused int8
+    session's calibrated table), gated by :func:`replay_ok`; then the
+    same replay under each fault of ``K6_REPLAY_FAULTS``, which the gate
+    must reject."""
+    from repro_torch.kernels.fused_step import \
+        quantized_fused_step_kernel as k6
+
+    step_replay_path(
+        "K6", "int8 fused step driving the fused int8 Phase 2",
+        lambda kernel: k6_replay_rows(qparams, cfg, fdcfg, store, prompts,
+                                      kernel), k6, K6_REPLAY_FAULTS)
 
 
 # The int8 replay: one unfused int8 Phase 2 driven by the plain int8
@@ -1448,13 +1616,13 @@ def _tail_dropped(x, *_):
     return x
 
 
-def _stage_twice(f, x, q, scale, *, transpose):
+def _stage_twice(f, x, q, scale, **kw):
     """The product plus the middle 64-deep stage of it once more."""
     k0 = 64 * (x.shape[1] // 128)
     xs = torch.zeros_like(x)
     xs[:, k0:k0 + 64] = x[:, k0:k0 + 64]
-    out = f(x, q, scale, transpose=transpose).float()
-    return (out + f(xs, q, scale, transpose=transpose).float()).to(x.dtype)
+    out = f(x, q, scale, **kw)
+    return (out.float() + f(xs, q, scale, **kw).float()).to(out.dtype)
 
 
 # Kernel faults the int8 replay must reject, each emulated around K5's
@@ -1463,15 +1631,13 @@ def _stage_twice(f, x, q, scale, *, transpose):
 # 64-deep K stage counted twice.
 K5_REPLAY_FAULTS = {
     "scale_one_channel_over": lambda f: (
-        lambda x, q, scale, *, transpose: f(
+        lambda x, q, scale, **kw: f(
             x, q, torch.roll(scale.reshape(-1), 1).reshape(scale.shape),
-            transpose=transpose)),
+            **kw)),
     "last_sixteenth_dropped": lambda f: (
-        lambda x, q, scale, *, transpose: f(
-            _tail_dropped(x), q, scale, transpose=transpose)),
+        lambda x, q, scale, **kw: f(_tail_dropped(x), q, scale, **kw)),
     "one_stage_twice": lambda f: (
-        lambda x, q, scale, *, transpose: _stage_twice(
-            f, x, q, scale, transpose=transpose)),
+        lambda x, q, scale, **kw: _stage_twice(f, x, q, scale, **kw)),
 }
 
 
@@ -1560,8 +1726,10 @@ def nfe_report(params, cfg, dcfg, store, batches: int = 2):
 def profile_phase2(session, prompts, label):
     """One more Phase-2 generate under ``torch.profiler``: the device's
     busy share of the wall time, the kernels that take it (and the shares
-    of K5, ``qmm_*``, K6, ``qmm_f32<..., FusedStepPartials>``, and K1/K4,
-    ``block_attn*``), and the host calls that launch and wait."""
+    of K5, ``qmm_wgmma`` and, its float32 head, ``head_wgmma<Int8Head...,
+    StoreF32>``; K6, ``head_wgmma<Int8Head..., Partials>``; K3's pass 1;
+    and K1/K4, ``block_attn*``), and the host calls that launch and
+    wait."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1585,19 +1753,23 @@ def profile_phase2(session, prompts, label):
         log(f"profiled Phase 2 {label}: the trace holds no device time "
             "(busy share not measured)")
         return
-    # K5 and K6 share the float32 kernel template, told apart by epilogue
-    k6 = sum(dev_us(e) for e in kern if "FusedStepPartials" in e.key) / 1e6
-    k5 = sum(dev_us(e) for e in kern if "qmm_" in e.key) / 1e6 - k6
+    # K5's float32 head and K6 share the head body, told apart by epilogue
+    int8 = [e for e in kern if "Int8Head" in e.key]
+    k6 = sum(dev_us(e) for e in int8 if "Partials" in e.key) / 1e6
+    k5h = sum(dev_us(e) for e in int8 if "StoreF32" in e.key) / 1e6
+    k5 = sum(dev_us(e) for e in kern if "qmm_wgmma" in e.key) / 1e6 + k5h
     k1 = [e for e in kern if "block_attn" in e.key]
     k1_s = sum(dev_us(e) for e in k1) / 1e6
-    # K3's pass 1 (``fused_step_wgmma`` bf16, ``fused_step_partial`` f32)
-    k3 = [e for e in kern if "fused_step_wgmma" in e.key
+    # K3's pass 1 (the head body on a bf16 head; ``fused_step_partial``
+    # f32)
+    k3 = [e for e in kern if "Bf16Head" in e.key
           or "fused_step_partial" in e.key]
     k3_s = sum(dev_us(e) for e in k3) / 1e6
     log(f"profiled Phase 2 {label} (under the profiler): NFE={res.nfe} "
         f"wall={wall:.3f}s device busy={busy:.3f}s "
         f"({busy / wall:.1%}), {sum(e.count for e in kern)} kernels; "
-        f"K5 device {k5:.3f}s ({k5 / busy:.1%} of busy), K6 device "
+        f"K5 device {k5:.3f}s ({k5 / busy:.1%} of busy; its float32 head "
+        f"{k5h:.4f}s, {k5h / busy:.1%}), K6 device "
         f"{k6:.3f}s ({k6 / busy:.1%}); K1/K4 device {k1_s:.4f}s "
         f"({k1_s / busy:.1%}) over {sum(e.count for e in k1)} launches; "
         f"K3 pass 1 device {k3_s:.4f}s ({k3_s / busy:.1%}) over "
@@ -1797,9 +1969,10 @@ def time_kernels(dev):
 def int8pack_yardstick(x, qt, out, transpose):
     """``torch._weight_int8pack_mm`` on the same inputs, as a timing
     yardstick for K5, or None with the reason when it does not compute
-    K5's function within K5's tolerance. It takes q as [N, K] and the
-    scales in x's dtype (bf16 scales for bf16 x, so a bf16 call is a
-    near neighbour of K5's function, not the same one)."""
+    K5's function within K5's tolerance (the tolerance of ``out``'s
+    dtype). It takes q as [N, K] and the scales in x's dtype (bf16 scales
+    for bf16 x, so a bf16 call is a near neighbour of K5's function, not
+    the same one)."""
     qn = (qt.q if transpose else qt.q.t()).contiguous()
     sc = qt.scale.reshape(-1).to(x.dtype).contiguous()
     try:
@@ -1807,37 +1980,58 @@ def int8pack_yardstick(x, qt, out, transpose):
         torch.cuda.synchronize()
     except RuntimeError as e:
         return None, f"does not run: {str(e).splitlines()[0][:120]}"
-    ok, err = (bf16_close if x.dtype == torch.bfloat16 else f32_close)(
-        got, out)
+    ok, err = (bf16_close if out.dtype == torch.bfloat16 else f32_close)(
+        got.to(out.dtype), out)
     if not ok:
         return None, f"disagrees with K5 (max_abs_err {err:.3e})"
     return (lambda i: torch._weight_int8pack_mm(x, qn, sc)), \
         f"agrees with K5 (max_abs_err {err:.3e})"
 
 
+def head_yardsticks(x, qts, copies):
+    """The two cuBLAS yardsticks of an int8 head product, device ms
+    (median, min, max): f32 cuBLAS on the f32-dequantized head (TF32
+    off): the oracle's function in one call; and bf16 cuBLAS on bf16(q):
+    the one-term product alone, without its scale."""
+    xf, xb = x.float(), x.to(torch.bfloat16)
+    wf = [qt.q.float() * qt.scale for qt in qts]
+    f32 = cuda_ms(lambda i: xf @ wf[i % copies], 5)
+    del wf
+    wb = [qt.q.to(torch.bfloat16) for qt in qts]
+    bf = cuda_ms(lambda i: xb @ wb[i % copies], 10)
+    del wb
+    torch.cuda.empty_cache()
+    return f32, bf
+
+
 def time_quantized_matmul(gen, dev):
     """K5 at the main path's shapes: the bf16 projections at the block
-    step (R = 256) and the prefill (R = 1024), and the f32 head. Several
-    weight copies rotate where one fits in the 50 MB L2, so each launch
-    streams its weight from HBM as a layer of the forward does. Prints
-    every shape; returns the block step's [4096, 12288] as the kernel's
-    row. The bf16 cuBLAS product on an unquantized bf16 weight of the
-    same shape is printed too: a different function (twice the weight
-    bytes), shown only as a yardstick."""
+    step (R = 256) and the prefill (R = 1024), and the head as the main
+    path calls it (bf16 x, float32 out: one term) at both, with f32 x
+    (three terms) at R = 256 beside it. Several weight copies rotate where
+    one fits in the 50 MB L2, so each launch streams its weight from HBM
+    as a layer of the forward does. The head's bound is the bf16 tensor
+    rate times its terms. Prints every shape; returns the block step's
+    [4096, 12288] as the kernel's row and the head's R = 256 rows. Beside
+    a projection, the bf16 cuBLAS product on an unquantized bf16 weight of
+    the same shape (a different function, twice the weight bytes); beside
+    a head, :func:`head_yardsticks`."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.quantized_matmul import \
         quantized_matmul_kernel as k5
     from repro_torch.models.quantize import quantize_tensor
 
-    bf = torch.bfloat16
+    bf, f32 = torch.bfloat16, torch.float32
     M, F, V = 4096, 12288, 126464
-    shapes = [(f"bf16 R={R} [{K}, {N}]", R, K, N, bf)
+    shapes = [(f"bf16 R={R} [{K}, {N}]", R, K, N, bf, bf)
               for R in (BATCH * BLOCK, BATCH * PROMPT)
               for K, N in ((M, M), (M, F), (F, M))]
-    shapes += [(f"f32 head R={R} [{M}, {V}]", R, M, V, torch.float32)
+    shapes += [(f"head R={R} [{M}, {V}] bf16 x f32 out", R, M, V, bf, f32)
                for R in (BATCH * BLOCK, BATCH * PROMPT)]
+    shapes += [(f"head R={BATCH * BLOCK} [{M}, {V}] f32 x (three terms)",
+                BATCH * BLOCK, M, V, f32, f32)]
     rows = {}
-    for label, R, K, N, dt in shapes:
+    for label, R, K, N, dt, od in shapes:
         copies = max(1, min(4, -(-100_000_000 // (K * N))))
         qts = [quantize_tensor(torch.randn((K, N), generator=gen,
                                            device=dev) * K ** -0.5, axis=-2)
@@ -1846,47 +2040,60 @@ def time_quantized_matmul(gen, dev):
 
         def run(i):
             qt = qts[i % copies]
-            return k5(x, qt.q, qt.scale, transpose=False)
+            return k5(x, qt.q, qt.scale, transpose=False, out_dtype=od)
 
         def plain(i):
             qt = qts[i % copies]
             return ref.quantized_matmul_ref(x, qt.q, qt.scale,
-                                            transpose=False)
+                                            transpose=False, out_dtype=od)
 
         lib_fn, lib_note = int8pack_yardstick(x, qts[0], run(0), False)
-        head = dt == torch.float32
-        iters = 3 if head else 20
-        nbytes = (R * K + R * N) * x.element_size() + K * N + 4 * N
+        head = od == f32
+        terms = 3 if dt == f32 else 1
+        iters = 10 if head else 20
+        nbytes = R * K * x.element_size() + R * N * (4 if head else 2) \
+            + K * N + 4 * N
         r = dict(ms=cuda_ms(run, iters),
                  plain_ms=cuda_ms(plain, 2 if head else 10),
-                 library_ms=cuda_ms(lib_fn, iters) if lib_fn else None,
-                 bound=bound(nbytes, 2 * R * K * N,
-                             F32_OPS_PER_S if head else BF16_OPS_PER_S))
-        ws = [(torch.randn((K, N), generator=gen, device=dev)
-               * K ** -0.5).to(bf) for _ in range(copies)]
-        cublas = cuda_ms(lambda i: x.to(bf) @ ws[i % copies], iters)[0]
-        rate = "f32 FMA 67 TF/s" if head else "bf16 989 TF/s"
+                 library_ms=cuda_ms(lib_fn, 3 if head else iters)
+                 if lib_fn else None,
+                 bound=bound(nbytes, 2 * R * K * N * terms, BF16_OPS_PER_S))
         lib = "none" if r["library_ms"] is None else \
             f"{r['library_ms'][0]:.4f} ms"
+        if head:
+            yf, yb = head_yardsticks(x, qts, copies)
+            other = (f"f32 cuBLAS on the f32-dequantized head (TF32 off, the "
+                     f"oracle's function): {yf[0]:.4f} ms [{yf[1]:.4f}-"
+                     f"{yf[2]:.4f}]; bf16 cuBLAS on bf16(q) (the one-term "
+                     f"product): {yb[0]:.4f} ms [{yb[1]:.4f}-{yb[2]:.4f}]")
+            r.update(f32_cublas_ms=yf[0], bf16_cublas_ms=yb[0])
+        else:
+            ws = [(torch.randn((K, N), generator=gen, device=dev)
+                   * K ** -0.5).to(bf) for _ in range(copies)]
+            cublas = cuda_ms(lambda i: x @ ws[i % copies], iters)[0]
+            other = (f"bf16 cuBLAS on an unquantized bf16 weight (a "
+                     f"different function): {cublas:.4f} ms")
+            del ws
         log(f"time quantized_matmul {label} (graph replay, median of 5, "
             f"{copies} weight copies): kernel {r['ms'][0]:.4f} ms "
             f"[{r['ms'][1]:.4f}-{r['ms'][2]:.4f}], plain "
             f"{r['plain_ms'][0]:.4f} ms, library (_weight_int8pack_mm) "
             f"{lib} [{lib_note}], bound {r['bound'][0]:.4f} ms "
-            f"({r['bound'][1]}, HBM 3.35 TB/s, {rate}); bf16 cuBLAS on an "
-            f"unquantized bf16 weight (a different function): "
-            f"{cublas:.4f} ms")
+            f"({r['bound'][1]}, HBM 3.35 TB/s, bf16 989 TF/s x {terms} "
+            f"term{'s' if terms > 1 else ''}); {other}")
         rows[label] = r
-        del qts, x, ws
+        del qts, x
         torch.cuda.empty_cache()
     return {"quantized_matmul": rows[f"bf16 R={BATCH * BLOCK} [{M}, {F}]"]}
 
 
 def time_quantized_fused_step(gen, dev):
-    """K6 at the fused int8 path's step: x [256, 4096] bf16 on LLaDA-8B's
-    untied int8 head [4096, 126464] (0.52 GB, two copies rotate so each
-    launch streams it from HBM), beside its plain version and the unfused
-    chain it replaces (the widening of x, K5's float32 head product, K2).
+    """K6 at the fused int8 path's step: x [256, 4096] bf16 (one term) on
+    LLaDA-8B's untied int8 head [4096, 126464] (0.52 GB, two copies rotate
+    so each launch streams it from HBM), and f32 x (three terms) beside
+    it; the bound is the bf16 tensor rate times the terms. Beside it: its
+    plain version, the unfused chain it replaces as the main path runs it
+    (K5's float32 head on bf16 x, then K2) and :func:`head_yardsticks`.
     No single PyTorch call computes it."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.confidence import fused_confidence_kernel as k2
@@ -1899,36 +2106,50 @@ def time_quantized_fused_step(gen, dev):
     R, M, V, copies = BATCH * BLOCK, 4096, 126464, 2
     qts = [quantize_tensor(torch.randn((M, V), generator=gen, device=dev)
                            * M ** -0.5, axis=-2) for _ in range(copies)]
-    x = torch.randn((R, M), generator=gen, device=dev).to(torch.bfloat16)
     tau = torch.full((R,), 1e-4, device=dev)
     masked = torch.ones((R,), dtype=torch.bool, device=dev)
+    rows = {}
+    for dt in (torch.bfloat16, torch.float32):
+        x = torch.randn((R, M), generator=gen, device=dev).to(dt)
+        terms = 1 if dt == torch.bfloat16 else 3
 
-    def run(i):
-        qt = qts[i % copies]
-        return k6(x, qt.q, qt.scale, tau, masked, tied=False)
+        def run(i):
+            qt = qts[i % copies]
+            return k6(x, qt.q, qt.scale, tau, masked, tied=False)
 
-    def plain(i):
-        qt = qts[i % copies]
-        return ref.quantized_fused_step_ref(x, qt.q, qt.scale, tau, masked,
-                                            tied=False)
+        def plain(i):
+            qt = qts[i % copies]
+            return ref.quantized_fused_step_ref(x, qt.q, qt.scale, tau,
+                                                masked, tied=False)
 
-    def chain(i):
-        qt = qts[i % copies]
-        return k2(k5(x.float(), qt.q, qt.scale, transpose=False))
+        def chain(i):
+            qt = qts[i % copies]
+            return k2(k5(x, qt.q, qt.scale, transpose=False,
+                         out_dtype=torch.float32))
 
-    r = dict(ms=cuda_ms(run, 3), plain_ms=cuda_ms(plain, 2), library_ms=None,
-             bound=bound(M * V + 4 * V + R * M * 2 + R * (4 + 1 + 4 + 4 + 1),
-                         2 * R * M * V, F32_OPS_PER_S))
-    unfused = cuda_ms(chain, 3)
-    log(f"time quantized_fused_step R={R} [{M}, {V}] bf16 x (graph replay, "
-        f"median of 5, {copies} head copies): kernel {r['ms'][0]:.4f} ms "
-        f"[{r['ms'][1]:.4f}-{r['ms'][2]:.4f}], plain {r['plain_ms'][0]:.4f} "
-        f"ms, unfused chain (x.float() + K5 f32 head + K2) "
-        f"{unfused[0]:.4f} ms [{unfused[1]:.4f}-{unfused[2]:.4f}], bound "
-        f"{r['bound'][0]:.4f} ms ({r['bound'][1]}, f32 FMA 67 TF/s)")
-    del qts, x
+        r = dict(ms=cuda_ms(run, 10), plain_ms=cuda_ms(plain, 2),
+                 library_ms=None,
+                 bound=bound(M * V + 4 * V + R * M * x.element_size()
+                             + R * (4 + 1 + 4 + 4 + 1), 2 * R * M * V * terms,
+                             BF16_OPS_PER_S))
+        unfused = cuda_ms(chain, 10)
+        yf, yb = head_yardsticks(x, qts, copies)
+        log(f"time quantized_fused_step R={R} [{M}, {V}] "
+            f"{'bf16' if terms == 1 else 'f32'} x (graph replay, median of "
+            f"5, {copies} head copies): kernel {r['ms'][0]:.4f} ms "
+            f"[{r['ms'][1]:.4f}-{r['ms'][2]:.4f}], plain "
+            f"{r['plain_ms'][0]:.4f} ms, unfused chain (K5 f32 head + K2) "
+            f"{unfused[0]:.4f} ms [{unfused[1]:.4f}-{unfused[2]:.4f}], bound "
+            f"{r['bound'][0]:.4f} ms ({r['bound'][1]}, bf16 989 TF/s x "
+            f"{terms} term{'s' if terms > 1 else ''}); f32 cuBLAS on the "
+            f"f32-dequantized head (TF32 off, the oracle's product): "
+            f"{yf[0]:.4f} ms; bf16 cuBLAS on bf16(q) (the one-term product): "
+            f"{yb[0]:.4f} ms")
+        rows[dt] = r
+        del x
+    del qts
     torch.cuda.empty_cache()
-    return {"quantized_fused_step": r}
+    return {"quantized_fused_step": rows[torch.bfloat16]}
 
 
 def time_flash_attention(gen, dev):
@@ -2026,7 +2247,7 @@ def main() -> int:
         for line in text.splitlines():
             if "Compiling entry function" in line and "'" in line:
                 fn = re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "",
-                            line.split("'")[1])[:48]
+                            line.split("'")[1])[:96]
             elif "registers" in line or "spill" in line or "C75" in line:
                 log(f"  {name} {fn}: {line.strip()}")
 

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks for a TMA-fed tensor-core kernel, used
-// by the int8 matmul kernel (K5) and the bf16 fused step (K3): mbarriers
+// by the int8 matmul kernel's bf16 body (K5) and the head body of
+// head_wgmma.cuh (K3, K6 and K5's float32 output): mbarriers
 // that pass shared-memory stages between the TMA and the warps, TMA tile
 // loads that complete on an mbarrier, the proxy fence that makes shared
 // memory written by threads (st.shared) visible to wgmma, wgmma itself
@@ -55,6 +56,18 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const void* map,
       "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
       "r"(c1)
+      : "memory");
+}
+
+// the same for the box at (c0, c1, c2) of a 3-D tensor map
+__device__ __forceinline__ void tma_load_3d(void* dst, const void* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
       : "memory");
 }
 

@@ -5,59 +5,33 @@
 vocab straight into the confidence accumulators, so the logits never
 reach device memory, and the kernel emits ``(conf, tok, above)``.
 ``quantized_fused_step_kernel`` is the port of
-``quantized_fused_step_pallas``: the same epilogue with an int8 head,
-dequantized in float32 as it streams. Source: ``csrc/fused_step.cu``. A
-CPU tensor goes to the plain version (``ref.fused_step_ref``,
-``ref.quantized_fused_step_ref``); a CUDA tensor launches the kernel or
-raises. The bf16 K3 runs on ``wgmma`` in a block shape that
-:func:`plan` picks per call.
+``quantized_fused_step_pallas``: the same epilogue with an int8 head.
+Source: ``csrc/fused_step.cu`` on ``csrc/head_wgmma.cuh``, the head body
+that the bf16 K3, K6 and K5's float32 output share. A CPU tensor goes to
+the plain version (``fused_step_plain``, ``quantized_fused_step_plain``);
+a CUDA tensor launches the kernel or raises. The body runs on ``wgmma``
+in a block shape that ``head.plan`` picks per call.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.head import int8_launch, plan
 from repro_torch.kernels.ref import fused_step_ref, quantized_fused_step_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "fused_step": (ctypes.c_int, [_P] * 10 + [_I] * 10 + [_P]),
-    "quantized_fused_step": (ctypes.c_int, [_P] * 11 + [_I] * 7 + [_P]),
+    "quantized_fused_step": (ctypes.c_int, [_P] * 12 + [_I] * 10 + [_P]),
 }
 
-# the bf16 K3 body's block shapes (csrc/fused_step.cu launch_bf16):
-# (rows of x, vocab columns)
-_TILES = ((256, 128), (128, 128), (64, 128))
 _F32_VT = 128       # the f32 K3 body's vocab tile (csrc/fused_step.cu kVT)
-_K6_VT = 128        # K6's vocab tile (csrc/qmm_f32.cuh kFN)
 _MAX_GRID_Y = 65535  # the vocab tiles, on grid y
 _ROWS_FINISH = 8    # rows per finishing block in threshold mode (32
                     # lanes merge each row's partials)
-
-
-class Plan(NamedTuple):
-    """The bf16 K3 launch: ``tile`` indexes ``_TILES``; ``rows`` x
-    ``width`` is the block (x rows by vocab columns, one partial per row
-    and ``width`` columns); ``tma`` feeds the ring by TMA, else by plain
-    loads into the same layouts."""
-    tile: int
-    rows: int
-    width: int
-    tma: bool
-
-
-def plan(R: int, V: int, tied: bool, aligned: bool) -> Plan:
-    """The bf16 K3 block for R rows and a V-column head: the fewest rows
-    of 64, 128 and 256 that hold R (256 past that) x 128 columns. TMA
-    needs 16-byte aligned rows: ``aligned`` says so of x and the base
-    pointers, and an untied head's rows (V bf16) must be too. Every block
-    runs the whole K loop, so a logit's sums do not depend on the block
-    shape."""
-    tile = 2 if R <= 64 else 1 if R <= 128 else 0
-    return Plan(tile, *_TILES[tile], tma=aligned and (tied or V % 8 == 0))
 
 
 def _check_rows(x, quota: int, group: int) -> None:
@@ -83,7 +57,8 @@ def _launch(entry: str, x, operands, tau, masked, V: int, width: int,
             tied: bool, quota: int, group: int, extra=()):
     """Checks the row operands, allocates ``ceil(V / width)`` partials a
     row and the outputs, and calls ``entry`` with the head ``operands``
-    (pointers) after x and the ints ``extra`` before the stream."""
+    (pointers; None passes a null pointer) after x and the ints ``extra``
+    before the stream."""
     R, M = x.shape
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"fused step kernel takes bf16 or f32, not {x.dtype}")
@@ -92,7 +67,7 @@ def _launch(entry: str, x, operands, tau, masked, V: int, width: int,
         raise ValueError("tau must be [R] float32 and masked [R] bool")
     if quota and group > 1024:
         raise ValueError(f"quota group {group} exceeds one block")
-    tensors = (x, *operands, tau, masked)
+    tensors = [t for t in (x, *operands, tau, masked) if t is not None]
     if any(t.device != x.device or not t.is_contiguous() for t in tensors):
         raise ValueError("fused step operands must be contiguous and on one "
                          "device")
@@ -108,7 +83,8 @@ def _launch(entry: str, x, operands, tau, masked, V: int, width: int,
     above = torch.empty((R,), dtype=torch.bool, device=dev)
     lib = build.load("fused_step", _SIGNATURES)
     err = getattr(lib, entry)(
-        x.data_ptr(), *(t.data_ptr() for t in operands), tau.data_ptr(),
+        x.data_ptr(), *(None if t is None else t.data_ptr()
+                        for t in operands), tau.data_ptr(),
         masked.data_ptr(), part_m.data_ptr(), part_s.data_ptr(),
         part_i.data_ptr(), conf.data_ptr(), tok.data_ptr(), above.data_ptr(),
         R, M, V, int(tied), int(x.dtype == torch.bfloat16), int(quota),
@@ -166,6 +142,21 @@ def fused_step_kernel(x: torch.Tensor, w: torch.Tensor, tau: torch.Tensor,
 fused_step_kernel.launches = 0
 
 
+def quantized_fused_step_plain(x: torch.Tensor, q: torch.Tensor,
+                               scale: torch.Tensor, tau: torch.Tensor,
+                               masked: torch.Tensor, *, tied: bool,
+                               quota: int = 0, group: int = 0):
+    """The plain version of :func:`quantized_fused_step_kernel` on any
+    device, in its signature (``ref.quantized_fused_step_ref`` per ranking
+    group)."""
+    _check_rows(x, quota, group)
+
+    def plain(x, tau, masked, quota):
+        return quantized_fused_step_ref(x, q, scale, tau, masked, tied=tied,
+                                        quota=quota)
+    return _plain(plain, x, tau, masked, quota, group)
+
+
 def quantized_fused_step_kernel(x: torch.Tensor, q: torch.Tensor,
                                 scale: torch.Tensor, tau: torch.Tensor,
                                 masked: torch.Tensor, *, tied: bool,
@@ -173,20 +164,19 @@ def quantized_fused_step_kernel(x: torch.Tensor, q: torch.Tensor,
     """x [R, M] bf16 or f32; q int8 [V, M] (tied) or [M, V]; scale f32
     with V elements (one per vocab channel); tau [R] f32; masked [R] bool
     -> (conf [R] f32, tok [R] i32, above [R] bool), as
-    :func:`fused_step_kernel` with the head ``f32(q) * scale``.
+    :func:`fused_step_kernel` with the head ``f32(q) * scale``. f32 x runs
+    as three bf16 terms (a split into scratch first).
     """
-    _check_rows(x, quota, group)
     if x.device.type == "cpu":
-        def plain(x, tau, masked, quota):
-            return quantized_fused_step_ref(x, q, scale, tau, masked,
-                                            tied=tied, quota=quota)
-        return _plain(plain, x, tau, masked, quota, group)
+        return quantized_fused_step_plain(x, q, scale, tau, masked,
+                                          tied=tied, quota=quota, group=group)
+    _check_rows(x, quota, group)
     if x.device.type != "cuda":
         raise ValueError(f"no int8 fused step kernel for {x.device}")
     if q.ndim != 2 or q.dtype != torch.int8:
         raise ValueError(f"int8 head must be a 2-d int8 tensor, not "
                          f"{tuple(q.shape)} {q.dtype}")
-    M = x.shape[1]
+    R, M = x.shape
     V = q.shape[0] if tied else q.shape[1]
     if tuple(q.shape) != ((V, M) if tied else (M, V)):
         raise ValueError(f"int8 head {tuple(q.shape)} {q.dtype} does not "
@@ -194,8 +184,10 @@ def quantized_fused_step_kernel(x: torch.Tensor, q: torch.Tensor,
     if scale.numel() != V or scale.dtype != torch.float32:
         raise ValueError(f"scale {tuple(scale.shape)} {scale.dtype} is not "
                          f"{V} float32 values")
-    out = _launch("quantized_fused_step", x, (q, scale), tau, masked, V,
-                  _K6_VT, tied, quota, group)
+    terms, p = int8_launch(x, q, V, tied)
+    out = _launch("quantized_fused_step", x, (q, scale, terms), tau, masked,
+                  V, p.width, tied, quota, group,
+                  (p.tile, int(p.tma), -(-V // p.width)))
     quantized_fused_step_kernel.launches += 1
     return out
 

@@ -6,6 +6,8 @@ a CPU tensor.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels.block_attention import (
@@ -25,8 +27,10 @@ __all__ = ["cached_block_attention", "cached_block_attention_kernel",
 
 
 def quantized_matmul(x: torch.Tensor, w: QuantizedTensor, *,
-                     transpose: bool = False) -> torch.Tensor:
-    """x [..., K] @ dequant(w)[(.T)] -> [..., N] in ``x.dtype``.
+                     transpose: bool = False,
+                     out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """x [..., K] @ dequant(w)[(.T)] -> [..., N] in ``out_dtype`` (default
+    ``x.dtype``; float32 with bf16 x for the lm head).
 
     ``w.q`` int8 [K, N] (projections, untied head) or, with
     ``transpose=True``, [N, K] (the tied embed table as the unembed); the
@@ -34,7 +38,8 @@ def quantized_matmul(x: torch.Tensor, w: QuantizedTensor, *,
     """
     lead = x.shape[:-1]
     out = quantized_matmul_kernel(x.reshape(-1, x.shape[-1]).contiguous(),
-                                  w.q, w.scale, transpose=transpose)
+                                  w.q, w.scale, transpose=transpose,
+                                  out_dtype=out_dtype)
     return out.reshape(*lead, out.shape[-1])
 
 
@@ -51,9 +56,9 @@ def fused_step(x: torch.Tensor, w: torch.Tensor, tau: torch.Tensor,
     """Fused denoising-step epilogue: unembed + confidence + select.
 
     x [..., M] final-norm'd hidden; w [V, M] (tied) or [M, V], or an int8
-    head (:class:`QuantizedTensor`, dequantized in float32 as it streams:
-    K6); tau and masked [...]. ``quota > 0`` ranks over the last axis (x
-    must be [B, bs, M]: one ranking group per block row). Returns
+    head (:class:`QuantizedTensor`: K6, its per-channel scale applied to
+    each logit); tau and masked [...]. ``quota > 0`` ranks over the last
+    axis (x must be [B, bs, M]: one ranking group per block row). Returns
     ``(conf, tok, above)`` shaped like ``tau``.
     """
     lead = x.shape[:-1]

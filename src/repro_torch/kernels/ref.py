@@ -25,8 +25,9 @@ def confidence_ref(logits: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def quantized_matmul_ref(x: torch.Tensor, q: torch.Tensor,
-                         scale: torch.Tensor, *,
-                         transpose: bool) -> torch.Tensor:
+                         scale: torch.Tensor, *, transpose: bool,
+                         out_dtype: Optional[torch.dtype] = None
+                         ) -> torch.Tensor:
     """Plain version of the int8 matmul kernel (K5), the accuracy contract:
     dequantize first (``q.float() * scale``), round the weight to
     ``x.dtype``, then contract (scaling after the dot is equal in exact
@@ -35,8 +36,11 @@ def quantized_matmul_ref(x: torch.Tensor, q: torch.Tensor,
     x [..., K]; q int8 [K, N] (or [N, K] with ``transpose=True``); scale
     float32 with the contracted dim kept as size 1. Returns [..., N] in
     ``x.dtype``: a float32 activation contracts in float32, a bf16 one
-    like the unquantized bf16 product.
+    like the unquantized bf16 product. ``out_dtype`` (float32 for the lm
+    head's bf16 activations) widens x to it first.
     """
+    if out_dtype is not None:
+        x = x.to(out_dtype)
     w = (q.float() * scale).to(x.dtype)
     return torch.matmul(x, w.t() if transpose else w)
 

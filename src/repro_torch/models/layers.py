@@ -98,8 +98,9 @@ def unembed(table_or_head, x: torch.Tensor, *,
     """Logits in float32. ``transpose`` when reusing the [V, M] embed table.
 
     A :class:`QuantizedTensor` head (int8) goes through the int8 matmul
-    with float32 activations: its dequantized weight stays float32, so
-    the contraction is float32 as on the raw path.
+    with the activations in their own dtype and float32 out: the float32
+    product of the widened activations and the float32 dequantized
+    weight, as on the raw path.
 
     The contraction is float32 as in the reference. A float32 head is used
     as it is. A narrower head (bf16 on the card) is upcast
@@ -108,12 +109,13 @@ def unembed(table_or_head, x: torch.Tensor, *,
     (2 GB at LLaDA-8B's width); every column's contraction is the same
     float32 product either way.
     """
-    xf = x.float()
     w = table_or_head
     if isinstance(w, QuantizedTensor):
         from repro_torch.kernels import ops as kops
 
-        return kops.quantized_matmul(xf, w, transpose=transpose)
+        return kops.quantized_matmul(x, w, transpose=transpose,
+                                     out_dtype=torch.float32)
+    xf = x.float()
     if w.dtype == torch.float32:
         return torch.matmul(xf, w.t() if transpose else w)
     V = w.shape[0] if transpose else w.shape[1]

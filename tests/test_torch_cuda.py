@@ -319,6 +319,39 @@ def test_quantized_matmul_kernel(dev, R, K, N, transpose, dtype):
                                    atol=1e-4)
 
 
+@pytest.mark.parametrize("R,K,N", [
+    (1, 128, 128),     # one row, 64-row block by TMA
+    (13, 200, 513),    # ragged everything: plain loads
+    (128, 512, 4096),  # 128-row block
+    (300, 1000, 2000),  # 256-row blocks, ragged R and K
+    (256, 512, 200),   # one ragged column tile (N % 16 != 0: plain loads)
+])
+@pytest.mark.parametrize("transpose", [False, True])
+def test_quantized_matmul_kernel_f32_out(dev, R, K, N, transpose):
+    """K5's head route, bf16 x with float32 out (one bf16 term on the head
+    body): within 1e-5 of the plain version, the float32 product of the
+    widened x (the sums run in another order); a second launch gives the
+    same bits."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = _rand(g, R, K, dev=dev).to(torch.bfloat16)
+    w = _rand(g, *((N, K) if transpose else (K, N)), dev=dev) * K ** -0.5
+    qt = quantize_tensor(w, axis=-1 if transpose else -2)
+    n0 = quantized_matmul_kernel.launches
+    h0 = quantized_matmul_kernel.head_launches
+    out = quantized_matmul_kernel(x, qt.q, qt.scale, transpose=transpose,
+                                  out_dtype=torch.float32)
+    again = quantized_matmul_kernel(x, qt.q, qt.scale, transpose=transpose,
+                                    out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert quantized_matmul_kernel.launches == n0 + 2
+    assert quantized_matmul_kernel.head_launches == h0 + 2
+    assert out.dtype == torch.float32 and out.shape == (R, N)
+    want = ref.quantized_matmul_ref(x, qt.q, qt.scale, transpose=transpose,
+                                    out_dtype=torch.float32)
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(out, again)
+
+
 @pytest.mark.parametrize("R,M,V", [(32, 96, 1000), (13, 200, 513),
                                    (256, 512, 3001)])
 @pytest.mark.parametrize("tied,quota", [(True, 0), (False, 0), (False, 3)])

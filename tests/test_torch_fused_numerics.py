@@ -16,10 +16,12 @@ import pytest
 import torch
 
 from repro_torch.kernels import fused_step as fs
+from repro_torch.kernels import head as hd
 from repro_torch.kernels.ref import confidence_ref, fused_step_ref
 
-_CU = (pathlib.Path(fs.__file__).resolve().parent / "csrc"
-       / "fused_step.cu").read_text()
+_CSRC = pathlib.Path(fs.__file__).resolve().parent / "csrc"
+_CU = (_CSRC / "fused_step.cu").read_text()
+_HEAD = (_CSRC / "head_wgmma.cuh").read_text()
 
 
 @pytest.mark.parametrize("R,V,tied,aligned,want", [
@@ -38,9 +40,9 @@ _CU = (pathlib.Path(fs.__file__).resolve().parent / "csrc"
     (256, 3001, True, True, (0, 256, 128, True)),
 ])
 def test_plan(R, V, tied, aligned, want):
-    p = fs.plan(R, V, tied, aligned)
+    p = hd.plan(R, V, tied, aligned)
     assert tuple(p) == want
-    assert (p.rows, p.width) == fs._TILES[p.tile]
+    assert (p.rows, p.width) == hd._TILES[p.tile]
     assert p.rows >= min(R, 256)
 
 
@@ -52,18 +54,19 @@ def test_plan_picks_the_block_by_rows_alone():
         want = 2 if R <= 64 else 1 if R <= 128 else 0
         for V in (1000, 5000, 11904, 126464):
             for tied in (False, True):
-                p = fs.plan(R, V, tied, True)
+                p = hd.plan(R, V, tied, True)
                 assert (p.tile, p.width) == (want, 128)
 
 
 def test_plan_tiles_match_the_kernel_source():
-    """The wrapper's tiles are the C entry's: the
-    ``launch_wgmma<TIED, ROWS>`` of each ``case`` of ``launch_bf16``, each
+    """The wrapper's tiles are the head body's: the
+    ``launch_rows<Head, ROWS, NT>`` of each ``case`` of ``launch``, each
     64 ``kWG`` columns wide."""
-    wg = int(re.search(r"constexpr int kWG = (\d+);", _CU).group(1))
-    cases = re.findall(r"case (\d):\s+return launch_wgmma<TIED, (\d+)>", _CU)
-    assert [(int(r), 64 * wg) for _, r in sorted(cases)] == list(fs._TILES)
-    assert [int(t) for t, _ in sorted(cases)] == list(range(len(fs._TILES)))
+    wg = int(re.search(r"constexpr int kWG = (\d+);", _HEAD).group(1))
+    cases = re.findall(r"case (\d):\s+(?:if constexpr \(NT == 1\)\s+)?"
+                       r"return launch_rows<Head, (\d+), NT>", _HEAD)
+    assert [(int(r), 64 * wg) for _, r in sorted(cases)] == list(hd._TILES)
+    assert [int(t) for t, _ in sorted(cases)] == list(range(len(hd._TILES)))
     assert re.search(r"constexpr int kVT = (\d+);", _CU).group(1) == \
         str(fs._F32_VT)
 
@@ -214,7 +217,7 @@ def _merged(part, order):
     return 1.0 / s, torch.where(i == torch.iinfo(torch.int32).max, 0, i)
 
 
-@pytest.mark.parametrize("width", sorted({w for _, w in fs._TILES}))
+@pytest.mark.parametrize("width", sorted({w for _, w in hd._TILES}))
 @pytest.mark.parametrize("V", [5000, 1003])
 def test_tile_partials_merge_to_the_confidence(width, V):
     """Per-tile partials at the plan's tile widths, merged in tile order,

@@ -292,6 +292,36 @@ def test_quantized_matmul_plain_rounds_weight_to_x_dtype():
     assert torch.equal(got, xb @ TQ.dequantize(qt).to(torch.bfloat16))
 
 
+@pytest.mark.parametrize("transpose", [False, True])
+def test_quantized_matmul_f32_out_of_bf16_x_is_the_widened_product(
+        transpose):
+    """The lm head's call, bf16 x with ``out_dtype=torch.float32``, gives
+    on the CPU the bits of the former route, the float32 product of
+    ``x.float()``, through the wrapper, ``ops.quantized_matmul`` and
+    ``unembed``; bf16 x cannot ask for another narrowing."""
+    rng = np.random.default_rng(21 + int(transpose))
+    R, K, N = 9, 96, 200
+    xb = torch.tensor(rng.standard_normal((R, K)),
+                      dtype=torch.float32).bfloat16()
+    w = torch.tensor(rng.standard_normal((N, K) if transpose else (K, N)),
+                     dtype=torch.float32)
+    tqt = TQ.quantize_tensor(w, axis=-1 if transpose else -2)
+    want = quantized_matmul_kernel(xb.float(), tqt.q, tqt.scale,
+                                   transpose=transpose)
+    got = quantized_matmul_kernel(xb, tqt.q, tqt.scale, transpose=transpose,
+                                  out_dtype=torch.float32)
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+    lead = ops.quantized_matmul(xb[None], tqt, transpose=transpose,
+                                out_dtype=torch.float32)
+    assert torch.equal(lead[0], want)
+    assert torch.equal(TL.unembed(tqt, xb[None], transpose=transpose)[0],
+                       want)
+    with pytest.raises(ValueError):
+        quantized_matmul_kernel(xb.float(), tqt.q, tqt.scale,
+                                transpose=transpose,
+                                out_dtype=torch.bfloat16)
+
+
 def test_quantized_matmul_kernel_refuses_other_devices():
     meta = dict(device="meta")
     with pytest.raises(ValueError):

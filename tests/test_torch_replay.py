@@ -323,3 +323,58 @@ def test_k3_compare_reads_masked_positions():
     assert r["above_mismatch"] == 1 and r["above_far"] == 4
     r = cs.k3_compare((conf, tok, above), got, torch.zeros_like(masked), tau)
     assert r["n"] == 4 and r["max_dconf"] == pytest.approx(0.7, rel=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the K6 replay: the int8-head fused step kernel against its plain version
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def k6_setup(int8_setup):
+    """The int8 setup with the fused epilogue (K6 in each denoising
+    forward) and the unfused int8 session's calibrated store."""
+    cfg, qdcfg, qparams, prompts, store = int8_setup
+    return cfg, dataclasses.replace(qdcfg, step_fusion="fused"), qparams, \
+        prompts, store
+
+
+def test_k6_replay_reports_zero_difference(k6_setup):
+    """On the CPU K6's wrapper takes the plain int8 fused step, which the
+    replay also drives with: one row per denoising forward, each equal,
+    the decode is the plain fused int8 decode, and the wrapper is
+    restored."""
+    from repro_torch.kernels.fused_step import \
+        quantized_fused_step_kernel as k6
+
+    cfg, fdcfg, qparams, prompts, store = k6_setup
+    res, rows = cs.k6_replay_rows(qparams, cfg, fdcfg, store, prompts, k6)
+    assert rows and {r["kind"] for r in rows} == {"step"}
+    assert len(rows) == int(res.steps_per_block.sum())
+    assert all(r["kernel"]["max_dconf"] == 0.0 and r["kernel"]["agree"] == 1.0
+               and r["kernel"]["above_mismatch"] == 0 for r in rows)
+    assert cs.replay_ok(rows)
+    assert kops.quantized_fused_step_kernel is k6
+    plain = OSDTSession(qparams, cfg, fdcfg, tok.MASK_ID, store=store,
+                        gen_fn=make_generate_fn(cfg, fdcfg,
+                                                attn_impl="kernel"))
+    want = plain.generate(prompts)
+    assert torch.equal(res.tokens, want.tokens) and res.nfe == want.nfe
+
+
+@pytest.mark.parametrize("name", sorted(cs.K6_REPLAY_FAULTS))
+def test_k6_replay_rejects_emulated_faults(k6_setup, name):
+    """Each K6 fault that the card check emulates (a neighbour's scale,
+    the contraction's last 1/16 dropped, the upper half of the vocabulary
+    hidden) moves the checked fused step past the bars, while the plain
+    int8 fused step still drives the same decode and the wrapper is
+    restored."""
+    from repro_torch.kernels.fused_step import \
+        quantized_fused_step_kernel as k6
+
+    cfg, fdcfg, qparams, prompts, store = k6_setup
+    res, rows = cs.k6_replay_rows(qparams, cfg, fdcfg, store, prompts,
+                                  cs.K6_REPLAY_FAULTS[name](k6))
+    assert not cs.replay_ok(rows)
+    assert kops.quantized_fused_step_kernel is k6
+    want, _ = cs.k6_replay_rows(qparams, cfg, fdcfg, store, prompts, k6)
+    assert torch.equal(res.tokens, want.tokens) and res.nfe == want.nfe
