@@ -7,7 +7,10 @@ Needs one CUDA device and exits non-zero without one. In order it:
      CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc each, in
      parallel);
   2. holds each kernel against its plain PyTorch version on the card, in
-     bf16 at the main path's shapes and on edge cases, the paged block
+     bf16 at the main path's shapes and on edge cases (the confidence
+     kernel, K2, also on ragged and unaligned rows and on equal maxima in
+     different splits of its cluster, giving the same bits twice and
+     allocating only its outputs), the paged block
      attention kernel (K4) bit for bit against the dense one (K1) on the
      gathered view, and the int8-head fused step (K6) against the int8
      matmul's float32 head (K5), which share one body: K6's tokens are the
@@ -25,7 +28,11 @@ Needs one CUDA device and exits non-zero without one. In order it:
      the K3 replay (the same fused Phase 2 driven by the plain fused step,
      the fused step kernel run on the same inputs at every denoising
      forward, held to the same bars, and the same replay under three
-     emulated K3 faults, which must fail them) and a report, not a gate,
+     emulated K3 faults, which must fail them), the K2 replay (the
+     unfused Phase 2 driven by the plain confidence pass, the confidence
+     kernel run on the same logits at every denoising forward, held to
+     the same bars, and the same replay under three emulated K2 faults,
+     which must fail them) and a report, not a gate,
      of the Phase-2 NFE with the kernel and with the plain attention over
      two prompt batches; then the paged path:
      the same Phase-2 decode over a page pool through a permuted page table
@@ -54,7 +61,7 @@ Needs one CUDA device and exits non-zero without one. In order it:
   4. times each kernel, its plain version and, where one exists, one
      PyTorch call computing the same function (device time: CUDA graph
      replays between CUDA events), beside the least time the card could
-     take;
+     take; then checks under the profiler that one K2 call is one kernel;
   5. prints the ``kernels`` JSON line and, last, the ``ok`` line.
 Any failed check raises, so the script exits non-zero and prints no
 result line.
@@ -201,7 +208,6 @@ def bf16_close(out, want):
 
 def check_kernels(dev):
     from repro_torch.kernels import ref
-    from repro_torch.kernels.confidence import fused_confidence_kernel as k2
     from repro_torch.kernels.fused_step import fused_step_kernel as k3
     from repro_torch.kernels.fused_step import fused_step_plain
     from repro_torch.kernels.head import plan as k3_plan
@@ -300,22 +306,8 @@ def check_kernels(dev):
                   "bit for bit")
             log("K4 main vs K1 on the gathered view: bitwise equal")
 
-    # K2: f32 logits; max and argmax involve no arithmetic, so tokens are
-    # equal everywhere; conf differs by the f32 sum order (rel 1e-4)
+    errs["confidence"] = check_confidence(gen, dev)
     R, V = BATCH * BLOCK, 126464
-    for name, x in (
-            ("main", torch.randn((R, V), generator=gen, device=dev) * 3),
-            ("integer_ties", torch.randint(0, 4, (9, 5000), generator=gen,
-                                           device=dev).float())):
-        conf, tok = k2(x)
-        rc, rt = ref.confidence_ref(x)
-        torch.cuda.synchronize()
-        rel = float(((conf - rc).abs() / rc).max())
-        mism = int((tok != rt).sum())
-        log(f"K2 {name}: conf_rel_err={rel:.3e} token_mismatches={mism}")
-        check(rel <= 1e-4 and mism == 0, f"K2 {name}")
-        if name == "main":
-            errs["confidence"] = float((conf - rc).abs().max())
 
     # K3: bf16 x and head, products exact in f32; the f32 sums differ by
     # at most ~M * 2^-24 * sum|x w| per logit, so tokens must be equal
@@ -381,6 +373,146 @@ def check_kernels(dev):
     check_shared_head_body(gen, dev)
     errs["flash_attention"] = check_flash_attention(gen, dev)
     return errs
+
+
+def k2_cases(gen, dev):
+    """K2's check cases, (name, logits): the main path's two shapes
+    ([256, 126464] of the unfused Phase 2, [32, 126464] of Phase 1), one
+    row, vocabularies that are not a whole number of 16-byte vectors (each
+    row then starts at another offset), a base off the 16-byte grid,
+    integer logits full of ties, and equal maxima planted in different
+    splits of the launch plan (a 16-byte aligned and an unaligned base),
+    where the first column must win."""
+    from repro_torch.kernels.confidence import THREADS as K2_THREADS
+    from repro_torch.kernels.confidence import plan as k2_plan
+
+    R, V = BATCH * BLOCK, 126464
+
+    def randn(rows, cols, offset=0):
+        buf = torch.randn((rows * cols + offset,), generator=gen,
+                          device=dev) * 3
+        return buf[offset:].view(rows, cols)
+
+    def ties(rows, cols, offset):
+        # integer logits (0..3) with a 9 at a first column in split
+        # r % (C - 1) of row r, again in a later thread or lane of the
+        # vector, in the same thread's next load, and twice in later
+        # splits: the first column must win
+        x = randn(rows, cols, offset)
+        x.copy_(torch.randint(0, 4, (rows, cols), generator=gen,
+                              device=dev).float())
+        C, split = k2_plan(rows, cols)
+        first = []
+        for r in range(rows):
+            c0 = (r % max(C - 1, 1)) * split + (37 * r) % (split // 2)
+            x[r, [min(cols - 1, c) for c in (
+                c0, c0 + 4 * r + 1, c0 + 4 * K2_THREADS, c0 + split + 3 * r,
+                c0 + 2 * split + 3 * r)]] = 9.0
+            first.append(c0)
+        return x, torch.tensor(first, dtype=torch.int32, device=dev)
+
+    return [
+        ("main", randn(R, V), None),
+        ("integer_ties", torch.randint(0, 4, (9, 5000), generator=gen,
+                                       device=dev).float(), None),
+        ("phase1_R32", randn(BLOCK, V), None),
+        ("one_row", randn(1, V), None),
+        ("ragged_V_5001", randn(BLOCK, 5001), None),
+        ("ragged_V_513", randn(R, 513), None),
+        ("unaligned_base", randn(BLOCK, V, offset=1), None),
+        ("ties_across_splits", *ties(BLOCK, V, 0)),
+        ("ties_across_splits_unaligned", *ties(BLOCK, 5001, 2)),
+    ]
+
+
+def check_confidence(gen, dev):
+    """K2 against its plain version on :func:`k2_cases`: max and argmax
+    involve no arithmetic, so tokens are equal everywhere (and, where
+    planted, the first maximum's column); conf differs by the f32 sum
+    order (1e-4 relative). Two calls give the same bits. One call
+    allocates conf and tok, nothing else; an all -inf row gives token 0
+    and conf inf. One call is one kernel (:func:`k2_one_launch`). Returns
+    the main case's max |conf difference|."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.confidence import fused_confidence_kernel as k2
+    from repro_torch.kernels.confidence import plan as k2_plan
+
+    err = None
+    for name, x, planted in k2_cases(gen, dev):
+        conf, tok = k2(x)
+        again = k2(x)
+        rc, rt = ref.confidence_ref(x)
+        torch.cuda.synchronize()
+        rel = float(((conf - rc).abs() / rc).max())
+        mism = int((tok != rt).sum())
+        same = torch.equal(conf, again[0]) and torch.equal(tok, again[1])
+        first = "" if planted is None else \
+            f" planted_first_max_mismatches={int((tok != planted).sum())}"
+        log(f"K2 {name} [{x.shape[0]}, {x.shape[1]}] (cluster "
+            f"{k2_plan(*x.shape).cluster}, base mod 16 "
+            f"{x.data_ptr() % 16}): conf_rel_err={rel:.3e} "
+            f"token_mismatches={mism}{first} same_bits_twice={same}")
+        check(rel <= 1e-4 and mism == 0, f"K2 {name}")
+        check(planted is None or torch.equal(tok, planted),
+              f"K2 {name}: the first of the planted maxima wins")
+        check(same, f"K2 {name} gives the same bits twice")
+        if name == "main":
+            err = float((conf - rc).abs().max())
+            main = x
+    x = main
+    torch.cuda.synchronize()
+    n0 = torch.cuda.memory_stats()["allocation.all.allocated"]
+    out = k2(x)
+    n1 = torch.cuda.memory_stats()["allocation.all.allocated"]
+    log(f"K2 one call: {n1 - n0} device allocations")
+    check(n1 - n0 == 2, "one K2 call allocates conf and tok, nothing else")
+    del out
+    y = x[:4].clone()
+    y[1] = -torch.inf
+    conf, tok = k2(y)
+    torch.cuda.synchronize()
+    check(int(tok[1]) == 0 and bool(torch.isinf(conf[1])),
+          "K2 on an all -inf row: token 0, conf inf")
+    k2_one_launch(x)
+    del main, x, y
+    torch.cuda.empty_cache()
+    return err
+
+
+def k2_one_launch(x):
+    """One K2 call on ``x`` captured into a CUDA graph: the graph must
+    hold exactly one node, a kernel (no finishing pass, no copy, no
+    memset). A graph and not a profiler trace: a one-call trace came back
+    empty in some runs."""
+    import ctypes
+
+    from repro_torch.kernels.confidence import fused_confidence_kernel as k2
+
+    k2(x)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        k2(x)
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0,
+          "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0,
+          "cuGraphGetNodes")
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                    ctypes.byref(kind)) == 0,
+              "cuGraphNodeGetType")
+        kinds.append(kind.value)
+    del graph
+    torch.cuda.synchronize()
+    log(f"K2 one call captured in a CUDA graph: {len(kinds)} node(s) of "
+        f"type {kinds} (0 = kernel)")
+    check(kinds == [0], "one K2 call is one kernel launch")
 
 
 def f32_close(out, want):
@@ -822,6 +954,7 @@ def main_path(dev, kernels):
     # compare-only phases: their launches are outside every path's count
     replay_path(params, cfg, dcfg, session.store, prompts)
     k3_replay_path(params, cfg, dcfg, session.store, prompts)
+    k2_replay_path(params, cfg, dcfg, session.store, prompts)
     nfe_report(params, cfg, dcfg, session.store)
     paged_counts = paged_path(dev, kernels, params, cfg, dcfg, table,
                               prompts, out["phase2_osdt_fused"][0])
@@ -1494,23 +1627,26 @@ def k6_replay_rows(qparams, cfg, fdcfg, store, prompts, kernel):
 
 
 def step_replay_summary(rows):
-    """A fused-step replay's rows in one line."""
+    """A fused-step (or confidence) replay's rows in one line; ``above``
+    where the rows have it."""
     k = [r["kernel"] for r in rows]
+    above = "" if "above_mismatch" not in k[0] else (
+        f", above mismatches {sum(r['above_mismatch'] for r in k)} of "
+        f"{sum(r['above_far'] for r in k)} positions 1e-3 from tau")
     return (f"max |dconf| {max(r['max_dconf'] for r in k):.3e}, worst "
             f"share {max(r['share'] for r in k):.2%}, lowest "
             f"argmax agreement {min(r['agree'] for r in k):.4f}, pooled "
             f"agreement {1 - disagreement(rows, 'kernel'):.4f} over "
-            f"{sum(r['n'] for r in k)} positions, above mismatches "
-            f"{sum(r['above_mismatch'] for r in k)} of "
-            f"{sum(r['above_far'] for r in k)} positions 1e-3 from tau; "
+            f"{sum(r['n'] for r in k)} positions{above}; "
             "share by forward " + " ".join(f"{r['share']:.2%}" for r in k))
 
 
 def step_replay_path(name, driven, run, kernel, faults):
-    """A fused-step replay (``run(kernel) -> (result, rows)``) gated by
-    :func:`replay_ok`; then the same replay under each fault of
-    ``faults``, which the gate must reject. ``name`` is the kernel's tag
-    (K3, K6) and ``driven`` says what the plain step drives."""
+    """A fused-step or confidence replay (``run(kernel) -> (result,
+    rows)``) gated by :func:`replay_ok`; then the same replay under each
+    fault of ``faults``, which the gate must reject. ``name`` is the
+    kernel's tag (K3, K6, K2) and ``driven`` says what the plain version
+    drives."""
     res, rows = run(kernel)
     torch.cuda.synchronize()
     log(f"{name} teacher-forced replay, {name} against the plain "
@@ -1539,6 +1675,117 @@ def k3_replay_path(params, cfg, dcfg, store, prompts):
         "K3", "fused step driving the bf16 fused Phase 2",
         lambda kernel: k3_replay_rows(params, cfg, dcfg, store, prompts,
                                       kernel), k3, K3_REPLAY_FAULTS)
+
+
+# The K2 replay: the main path's unfused bf16 Phase 2 (K1 and the bf16
+# head driving the forwards) driven by the plain confidence pass
+# (``ref.confidence_ref`` on the card, in place of
+# ``kernels.ops.fused_confidence_kernel``), K2 run on the same logits at
+# every denoising forward, gated by the same bars as K1's. K2's wrapper
+# sees no mask, so every position of the block is read.
+
+class K2Replay:
+    """While active, ``kernels.ops`` takes the plain confidence pass for
+    the unfused epilogue, after running ``kernel`` (K2's wrapper, or a
+    fault around it) on the same logits; each call adds one row to
+    ``rows``, :func:`conf_compare` of the two under ``"kernel"``."""
+
+    def __init__(self, kernel):
+        self.kernel = kernel
+        self.rows = []
+
+    def __enter__(self):
+        from repro_torch.kernels import ops as kops
+
+        self.kops, self.saved = kops, kops.fused_confidence_kernel
+        kops.fused_confidence_kernel = self.step
+        return self
+
+    def __exit__(self, *exc):
+        self.kops.fused_confidence_kernel = self.saved
+
+    def step(self, logits):
+        from repro_torch.kernels.ref import confidence_ref
+
+        got = self.kernel(logits)
+        want = confidence_ref(logits)
+        self.rows.append({"kind": "step", "kernel": conf_compare(want, got)})
+        return want
+
+
+def conf_compare(want, got):
+    """Two confidence passes' ``(conf, tok)`` on the same logits, as
+    :func:`replay_compare` reads two forwards, over every row: the max
+    |conf difference|, its share of ``want``'s max conf, the argmax
+    agreement and the count."""
+    (c0, t0), (c1, t1) = want, got
+    dmax = float((c1 - c0).abs().max())
+    return dict(max_dconf=dmax, share=dmax / float(c0.max()),
+                agree=float((t0 == t1).float().mean()), n=int(c0.numel()))
+
+
+def _split_local_argmax(f, x):
+    """K2 whose token is its column within its split (the plan's)."""
+    from repro_torch.kernels.confidence import plan
+
+    conf, tok = f(x)
+    return conf, tok % plan(*x.shape).split
+
+
+def _merge_without_rescale(f, x):
+    """K2 whose cluster merge adds the splits' sums of exp(x - m_i) as
+    they are, without exp(m_i - m): 1 / the sum of each split's 1/conf."""
+    from repro_torch.kernels.confidence import plan
+
+    w = plan(*x.shape).split
+    conf, tok = f(x)
+    s = sum(1 / f(x[:, c:c + w].contiguous())[0]
+            for c in range(0, x.shape[1], w))
+    return 1 / s, tok
+
+
+# K2 faults the replay must reject, each emulated around K2's wrapper as a
+# kernel with that fault would compute: the upper half of the vocabulary
+# hidden, the token taken relative to its split's first column, and the
+# splits' sums merged without their rescale.
+K2_REPLAY_FAULTS = {
+    "upper_vocab_hidden": lambda f: (
+        lambda x: f(x[:, :x.shape[1] // 2].contiguous())),
+    "split_local_argmax": lambda f: (lambda x: _split_local_argmax(f, x)),
+    "merge_without_rescale": lambda f: (
+        lambda x: _merge_without_rescale(f, x)),
+}
+
+
+def k2_replay_rows(params, cfg, dcfg, store, prompts, kernel):
+    """The K2 replay's rows: the unfused bf16 decode (the main path's, K1
+    driving the forwards) driven by the plain confidence pass, ``kernel``
+    (K2's wrapper, or a fault around it) checked at every denoising
+    forward: (result, rows)."""
+    from repro_torch.core.decoder import make_generate_fn
+    from repro_torch.core.osdt import OSDTSession
+    from repro_torch.data import tokenizer as tok
+
+    s = OSDTSession(params, cfg, dcfg, tok.MASK_ID, store=store,
+                    gen_fn=make_generate_fn(cfg, dcfg, attn_impl="kernel",
+                                            step_fusion="unfused",
+                                            use_kernel=True))
+    with K2Replay(kernel) as rp:
+        res = s.generate(prompts)
+    return res, rp.rows
+
+
+def k2_replay_path(params, cfg, dcfg, store, prompts):
+    """The K2 replay of the main path's unfused bf16 Phase 2 (its batch,
+    the session's calibrated table), gated by :func:`replay_ok`; then the
+    same replay under each fault of ``K2_REPLAY_FAULTS``, which the gate
+    must reject."""
+    from repro_torch.kernels.confidence import fused_confidence_kernel as k2
+
+    step_replay_path(
+        "K2", "confidence pass driving the unfused bf16 Phase 2",
+        lambda kernel: k2_replay_rows(params, cfg, dcfg, store, prompts,
+                                      kernel), k2, K2_REPLAY_FAULTS)
 
 
 # The K6 replay: one fused int8 Phase 2 driven by the plain int8 fused
@@ -1797,7 +2044,6 @@ def time_kernels(dev):
         cached_block_attention_kernel as k1
     from repro_torch.kernels.block_attention import (kv_limit_from_pos,
                                                      row_scalars)
-    from repro_torch.kernels.confidence import fused_confidence_kernel as k2
     from repro_torch.kernels.fused_step import fused_step_kernel as k3
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -1907,16 +2153,9 @@ def time_kernels(dev):
         bound=bound(k1_bytes + 4 * B * n_log, k1_ops, BF16_OPS_PER_S))
     del xp, kview, vview
 
-    # K2 on the unfused path's logits: [B*bs, V] f32, 129.5 MB (> L2)
-    R, V, M = B * bs, 126464, 4096
-    logits = torch.randn((R, V), generator=gen, device=dev) * 3
-    res["confidence"] = dict(
-        ms=cuda_ms(lambda i: k2(logits), 50),
-        plain_ms=cuda_ms(lambda i: ref.confidence_ref(logits), 10),
-        library_ms=None,
-        bound=bound(R * V * 4 + R * 8, 4 * R * V, F32_OPS_PER_S))
-    del logits
+    res.update(time_confidence(gen, dev))
 
+    R, V, M = B * bs, 126464, 4096
     # K3 at the main path's step: x [256, 4096] bf16, untied head
     # [4096, 126464] bf16 (1.04 GB); and Phase 1's R = 32. No single
     # PyTorch call computes (conf, tok, above); the bf16 cuBLAS product of
@@ -1963,6 +2202,49 @@ def time_kernels(dev):
             f"{r['ms_range'][1]:.4f}], plain {r['plain_ms']:.4f} ms, "
             f"library {lib} ms, bound {r['bound'][0]:.4f} ms "
             f"({r['bound'][1]})")
+    return res
+
+
+def time_confidence(gen, dev):
+    """K2 on the unfused Phase 2's logits, [B*bs, V] f32, 129.5 MB (> L2),
+    and on Phase 1's R = 32, four copies rotating (4 x 16.2 MB > L2).
+    No single PyTorch call computes (conf, tok); the two-call composition
+    torch.max + torch.logsumexp prints beside it as a yardstick, its
+    tokens held equal to K2's, and the plan's cluster size beside its
+    neighbours. Returns the R = 256 row."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.confidence import fused_confidence_kernel as k2
+
+    R, V = BATCH * BLOCK, 126464
+    res = {}
+    for rows, copies in ((R, 1), (BLOCK, 4)):
+        xs = [torch.randn((rows, V), generator=gen, device=dev) * 3
+              for _ in range(copies)]
+
+        def two_calls(i):
+            x = xs[i % copies]
+            return torch.max(x, -1), torch.logsumexp(x, -1)
+
+        for x in xs:
+            check(torch.equal(k2(x)[1], torch.max(x, -1).indices.to(
+                torch.int32)), "the two-call yardstick's tokens are K2's")
+        r = dict(ms=cuda_ms(lambda i: k2(xs[i % copies]), 50),
+                 plain_ms=cuda_ms(lambda i: ref.confidence_ref(
+                     xs[i % copies]), 10),
+                 library_ms=None,
+                 bound=bound(rows * V * 4 + rows * 8, 4 * rows * V,
+                             F32_OPS_PER_S))
+        yard = cuda_ms(two_calls, 50)
+        log(f"time confidence R={rows} [{rows}, {V}] f32 (graph replay, "
+            f"median of 5, {copies} cop{'ies' if copies > 1 else 'y'}): "
+            f"kernel {r['ms'][0]:.4f} ms [{r['ms'][1]:.4f}-"
+            f"{r['ms'][2]:.4f}], plain {r['plain_ms'][0]:.4f} ms, bound "
+            f"{r['bound'][0]:.4f} ms ({r['bound'][1]}); torch.max + "
+            f"torch.logsumexp (two calls, a yardstick): {yard[0]:.4f} ms "
+            f"[{yard[1]:.4f}-{yard[2]:.4f}]")
+        if rows == R:
+            res["confidence"] = r
+        del xs
     return res
 
 

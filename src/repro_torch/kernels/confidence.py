@@ -1,15 +1,19 @@
 """Fused confidence: the CUDA kernel's wrapper (K2).
 
 ``fused_confidence_kernel`` is the port of the reference's
-``fused_confidence_pallas``: one streaming pass over the vocab gives
-``conf = max softmax`` and ``tok = argmax`` (first occurrence). Source:
-``csrc/confidence.cu``, sharing its accumulator with the fused step
-(``csrc/softmax_acc.cuh``). A CPU tensor goes to the plain version
-(``ref.confidence_ref``); a CUDA tensor launches the kernel or raises.
+``fused_confidence_pallas``: one pass over the vocab gives ``conf = max
+softmax`` and ``tok = argmax`` (first occurrence). Source:
+``csrc/confidence.cu``: one launch whose C CTAs a row form a thread-block
+cluster, each streaming a share of the row's 16-byte vectors, merged in
+rank order through the cluster's shared memory; the only device memory
+it writes is ``conf`` and ``tok``. :func:`plan` picks C. A CPU tensor
+goes to the plain version (``ref.confidence_ref``); a CUDA tensor
+launches the kernel or raises.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -18,13 +22,30 @@ from repro_torch.kernels.ref import confidence_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "fused_confidence": (ctypes.c_int, [_P] * 6 + [_I] * 3 + [_P]),
+    "fused_confidence": (ctypes.c_int, [_P] * 3 + [_I] * 3 + [_P]),
 }
 
-# enough blocks to fill the card's 132 SMs a few times over, and no chunk
-# shorter than this many columns
-_TARGET_BLOCKS = 528
-_MIN_CHUNK = 2048
+# csrc/confidence.cu's kThreads, kUnroll and kMaxCluster
+THREADS, UNROLL, MAX_CLUSTER = 256, 4, 16
+# the card's SMs
+SMS = 132
+
+
+class Plan(NamedTuple):
+    cluster: int   # CTAs a row, one thread-block cluster
+    split: int     # columns a CTA streams as vectors, of a 16-byte aligned row
+
+
+def plan(R: int, V: int) -> Plan:
+    """The launch of ``R`` rows of ``V`` columns: the smallest power-of-two
+    cluster from 2 to ``MAX_CLUSTER`` that gives every SM a CTA (``R * C
+    >= SMS``). Phase 1's 32 rows take 8 and Phase 2's 256 take 2: both
+    fill the card in one wave (four CTAs a SM), with no wave tail. More
+    CTAs a row only add partials to merge."""
+    c = 2
+    while c < MAX_CLUSTER and c * R < SMS:
+        c *= 2
+    return Plan(c, 4 * -(-(V // 4) // c))
 
 
 def fused_confidence_kernel(logits: torch.Tensor):
@@ -38,19 +59,14 @@ def fused_confidence_kernel(logits: torch.Tensor):
         raise ValueError("confidence kernel takes contiguous [R, V] float32 "
                          f"logits, not {tuple(logits.shape)} {logits.dtype}")
     R, V = logits.shape
-    nsplit = max(1, min(-(-_TARGET_BLOCKS // R), -(-V // _MIN_CHUNK)))
-    dev = logits.device
-    part_m = torch.empty((nsplit, R), dtype=torch.float32, device=dev)
-    part_s = torch.empty((nsplit, R), dtype=torch.float32, device=dev)
-    part_i = torch.empty((nsplit, R), dtype=torch.int32, device=dev)
-    conf = torch.empty((R,), dtype=torch.float32, device=dev)
-    tok = torch.empty((R,), dtype=torch.int32, device=dev)
+    conf = torch.empty((R,), dtype=torch.float32, device=logits.device)
+    tok = torch.empty((R,), dtype=torch.int32, device=logits.device)
     lib = build.load("confidence", _SIGNATURES)
-    err = lib.fused_confidence(
-        logits.data_ptr(), part_m.data_ptr(), part_s.data_ptr(),
-        part_i.data_ptr(), conf.data_ptr(), tok.data_ptr(), R, V, nsplit,
-        torch.cuda.current_stream(dev).cuda_stream)
-    build.check(err, "fused_confidence")
+    build.check(lib.fused_confidence(
+        logits.data_ptr(), conf.data_ptr(), tok.data_ptr(), R, V,
+        plan(R, V).cluster,
+        torch.cuda.current_stream(logits.device).cuda_stream),
+        "fused_confidence")
     fused_confidence_kernel.launches += 1
     return conf, tok
 

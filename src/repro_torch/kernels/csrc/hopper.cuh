@@ -6,7 +6,8 @@
 // memory written by threads (st.shared) visible to wgmma, wgmma itself
 // (m64nNk16, bf16 x bf16 -> f32, A from registers, B from shared memory)
 // with its shared-memory descriptor, and, on the host, the driver's
-// tensor-map encoder.
+// tensor-map encoder; and, for the confidence kernel (K2), thread-block
+// cluster barriers and loads from another CTA's shared memory.
 //
 // Shared operand layout: K-major, 128-byte swizzle. A tile of
 // `rows` x 64 bf16 lies row after row, 128 bytes a row, in a 1024-byte
@@ -132,6 +133,58 @@ template <int N>
 __device__ __forceinline__ void wgmma_fence_operands(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Thread-block clusters (the confidence kernel, K2): this CTA's rank in
+// its cluster and the cluster's CTA count; a barrier over every thread of
+// the cluster, whose release / acquire makes shared-memory writes made
+// before it visible to reads after it from any CTA of the cluster (and
+// which no CTA passes before all have started); the shared-memory address
+// of the same location in the CTA of rank `rank`, and loads through it
+// (distributed shared memory).
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_ctas() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t mapa_shared(uint32_t addr,
+                                                uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ int ld_cluster_s32(uint32_t addr) {
+  int v;
+  asm volatile("ld.shared::cluster.s32 %0, [%1];\n"
+               : "=r"(v)
+               : "r"(addr)
+               : "memory");
+  return v;
 }
 
 // descriptor of a K-major, 128-byte-swizzled operand starting at `p`

@@ -200,13 +200,49 @@ def test_paged_kernel_is_dense_kernel_on_gathered_view(dev):
     assert torch.equal(paged, dense)
 
 
-def test_confidence_kernel(dev):
+@pytest.mark.parametrize("R,V,offset,ties", [
+    (37, 5000, 0, False),
+    # ragged vocabularies: rows start off the 16-byte grid
+    (32, 5001, 0, False),
+    (256, 513, 0, False),
+    # one row: 16 CTAs in its cluster
+    (1, 126464, 0, False),
+    # a base off the 16-byte grid
+    (8, 4096, 3, False),
+    # equal maxima in different splits of the plan: the first wins
+    (32, 126464, 0, True),
+    (9, 5001, 2, True),
+])
+def test_confidence_kernel(dev, R, V, offset, ties):
+    """K2 against its plain version (conf 1e-5 relative, tokens equal) on
+    ragged, unaligned and tied rows, the same bits on a second call."""
+    from repro_torch.kernels.confidence import THREADS, plan
+
     g = torch.Generator(device=dev).manual_seed(1)
-    x = _rand(g, 37, 5000, dev=dev) * 3
+    x = (_rand(g, R * V + offset, dev=dev) * 3)[offset:].view(R, V)
+    if ties:
+        # integer logits (0..3) with a 9 at a first column in split
+        # r % (C - 1) of row r, again in a later thread or lane of the
+        # vector, in the same thread's next load, and twice in later
+        # splits: the first column must win
+        x.copy_(torch.randint(0, 4, (R, V), generator=g, device=dev).float())
+        C, split = plan(R, V)
+        first = []
+        for r in range(R):
+            c0 = (r % max(C - 1, 1)) * split + (37 * r) % (split // 2)
+            x[r, [min(V - 1, c) for c in (
+                c0, c0 + 4 * r + 1, c0 + 4 * THREADS, c0 + split + 3 * r,
+                c0 + 2 * split + 3 * r)]] = 9.0
+            first.append(c0)
+        first = torch.tensor(first, dtype=torch.int32, device=dev)
     conf, tok = fused_confidence_kernel(x)
+    again = fused_confidence_kernel(x)
     rc, rt = ref.confidence_ref(x)
     torch.testing.assert_close(conf, rc, rtol=1e-5, atol=0)
     assert torch.equal(tok, rt)
+    if ties:
+        assert torch.equal(tok, first)
+    assert torch.equal(conf, again[0]) and torch.equal(tok, again[1])
 
 
 @pytest.mark.parametrize("tied,quota", [(True, 0), (False, 0), (False, 3)])

@@ -378,3 +378,62 @@ def test_k6_replay_rejects_emulated_faults(k6_setup, name):
     assert kops.quantized_fused_step_kernel is k6
     want, _ = cs.k6_replay_rows(qparams, cfg, fdcfg, store, prompts, k6)
     assert torch.equal(res.tokens, want.tokens) and res.nfe == want.nfe
+
+
+# ---------------------------------------------------------------------------
+# the K2 replay: the confidence kernel against the plain confidence pass
+# ---------------------------------------------------------------------------
+
+def test_k2_replay_reports_zero_difference(setup):
+    """On the CPU K2's wrapper takes the plain confidence pass, which the
+    replay also drives with: one row per denoising forward of the unfused
+    decode, each equal, the decode is the plain unfused decode, and the
+    wrapper is restored."""
+    from repro_torch.kernels.confidence import fused_confidence_kernel as k2
+
+    cfg, dcfg, params, prompts, store = setup
+    res, rows = cs.k2_replay_rows(params, cfg, dcfg, store, prompts, k2)
+    assert rows and {r["kind"] for r in rows} == {"step"}
+    assert len(rows) == int(res.steps_per_block.sum())
+    assert all(r["kernel"]["max_dconf"] == 0.0 and r["kernel"]["agree"] == 1.0
+               and r["kernel"]["n"] == prompts.shape[0] * dcfg.block_size
+               for r in rows)
+    assert cs.replay_ok(rows)
+    assert "above" not in cs.step_replay_summary(rows)
+    assert kops.fused_confidence_kernel is k2
+    plain = OSDTSession(params, cfg, dcfg, tok.MASK_ID, store=store,
+                        gen_fn=make_generate_fn(cfg, dcfg, attn_impl="kernel",
+                                                step_fusion="unfused",
+                                                use_kernel=True))
+    want = plain.generate(prompts)
+    assert torch.equal(res.tokens, want.tokens) and res.nfe == want.nfe
+
+
+@pytest.mark.parametrize("name", sorted(cs.K2_REPLAY_FAULTS))
+def test_k2_replay_rejects_emulated_faults(setup, name):
+    """Each K2 fault that the card check emulates (the upper half of the
+    vocabulary hidden, the token taken within its split, the splits' sums
+    merged without their rescale) moves the checked confidence pass past
+    the bars, while the plain pass still drives the same decode and the
+    wrapper is restored."""
+    from repro_torch.kernels.confidence import fused_confidence_kernel as k2
+
+    cfg, dcfg, params, prompts, store = setup
+    res, rows = cs.k2_replay_rows(params, cfg, dcfg, store, prompts,
+                                  cs.K2_REPLAY_FAULTS[name](k2))
+    assert not cs.replay_ok(rows)
+    assert kops.fused_confidence_kernel is k2
+    want, _ = cs.k2_replay_rows(params, cfg, dcfg, store, prompts, k2)
+    assert torch.equal(res.tokens, want.tokens) and res.nfe == want.nfe
+
+
+def test_conf_compare_reads_every_row():
+    """K2's wrapper sees no mask: every row counts."""
+    conf = torch.tensor([0.5, 0.2, 0.4])
+    tok = torch.tensor([1, 2, 3], dtype=torch.int32)
+    got = (conf + torch.tensor([0.0, 0.1, 0.0]),
+           torch.tensor([1, 2, 9], dtype=torch.int32))
+    r = cs.conf_compare((conf, tok), got)
+    assert r["max_dconf"] == pytest.approx(0.1, rel=1e-6)
+    assert r["share"] == pytest.approx(0.2, rel=1e-6)
+    assert r["agree"] == pytest.approx(2 / 3) and r["n"] == 3
