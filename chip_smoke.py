@@ -39,7 +39,14 @@ Needs one CUDA device and exits non-zero without one. In order it:
      (K4 + K3), whose tokens, NFE and steps must equal the dense run's, and
      a 64-token system prefix prefilled once into allocator pages that
      every row forks, which must decode as private copies of those pages
-     do and stay byte-identical; then the int8 path: the weights quantized
+     do and stay byte-identical; then the serving path: the port's
+     ``DiffusionEngine`` on 18 task requests (three batches, 6 dead
+     slots) with the main path's decode config, a dense engine whose
+     first batch calibrates three tasks (K1 + K3), two paged engines on
+     its store, without and with a shared system prefix (K4 + K3, no page
+     leaked), and an int8 engine (K5 + K6), each batch's token rows equal
+     bit for bit to a direct generate call over rows, tables and pages
+     that the check builds itself; then the int8 path: the weights quantized
      on the card, the same OSDT decode through the unfused epilogue with
      the int8 matmul kernel (K5) in every projection and the head, the
      same Phase 2 on the dequantized weights through the bf16 path, and
@@ -958,6 +965,7 @@ def main_path(dev, kernels):
     nfe_report(params, cfg, dcfg, session.store)
     paged_counts = paged_path(dev, kernels, params, cfg, dcfg, table,
                               prompts, out["phase2_osdt_fused"][0])
+    serving_counts = serving_path(dev, kernels, params, cfg, dcfg)
     int8_counts, int8_sessions = int8_path(dev, kernels, params, cfg, dcfg,
                                            prompts)
     flash_counts = flash_path(dev, kernels, params, cfg, prompts)
@@ -967,8 +975,8 @@ def main_path(dev, kernels):
         profile_phase2(s, prompts, label)
     del params, session, int8_sessions
     torch.cuda.empty_cache()
-    return {n: counts[n] + paged_counts[n] + int8_counts[n] + flash_counts[n]
-            for n in counts}
+    return {n: counts[n] + paged_counts[n] + serving_counts[n]
+            + int8_counts[n] + flash_counts[n] for n in counts}
 
 
 def warm_repeat(session, prompts, label, first, first_secs):
@@ -1295,6 +1303,331 @@ def paged_path(dev, kernels, params, cfg, dcfg, table, prompts, dense):
           "the paged path launched K4 and K3, and not K1")
     del pool, kp, vp, cache
     return counts
+
+
+# ---------------------------------------------------------------------------
+# serving path: the port's DiffusionEngine at LLaDA-8B width, each batch's
+# token rows held against a direct generate call that the check builds
+# ---------------------------------------------------------------------------
+
+# the serving path's traffic (three tasks interleaved, three batches: 8,
+# 8 and 2 live rows) and its system prompt: 71 ids with BOS, rounded down
+# to 4 pages of 16
+SERVE_REQUESTS = 18
+SERVE_SYSTEM = ("System: you are a terse assistant. Answer the question "
+                "in one short line.")
+# decode_weight_bytes of LLaDA-8B's int8 tree (PERF.md section 2)
+INT8_WEIGHT_BYTES = 7_504_123_904
+
+
+def serving_stream():
+    """``SERVE_REQUESTS`` requests from ``data/tasks.py`` and the seed, the
+    three tasks interleaved: (uid, task, prompt)."""
+    from repro_torch.data.tasks import TASKS
+
+    names = ("gsm8k-syn", "gpqa-syn", "humaneval-syn")
+    rng = np.random.default_rng(SEED)
+    per = {t: TASKS[t].make(rng, SERVE_REQUESTS // 3) for t in names}
+    return [(i, names[i % 3], per[names[i % 3]][i // 3].prompt)
+            for i in range(SERVE_REQUESTS)]
+
+
+def record_batches(sched):
+    """Wrap the scheduler's generate (in the check, not the program): each
+    call's prompt rows, tables, liveness, page table, the tasks the store
+    had calibrated before it, and its result. Returns the list of calls."""
+    calls, real = [], sched._gen
+
+    def gen(params, prompt, tables, mask_id, live, eos_id, *paged):
+        res = real(params, prompt, tables, mask_id, live, eos_id, *paged)
+        calls.append(dict(prompt=np.array(prompt), tables=np.array(tables),
+                          live=np.array(live), eos=eos_id,
+                          pt=np.array(paged[2]) if paged else None,
+                          calibrated=sched.store.tasks(), res=res))
+        return res
+
+    sched._gen = gen
+    return calls
+
+
+def serve_timed(engine, stream):
+    from repro_torch.serving.engine import Request
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = engine.submit([Request(*r) for r in stream])
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def log_engine(label, engine, calls, secs, card):
+    st = engine.stats
+    log(f"serving {label} [{card}]: requests={st.requests} "
+        f"batches={st.batches} dead_slots={st.dead_slots} NFE={st.nfe} "
+        f"prefill_nfe={st.prefill_nfe} tokens={st.tokens} "
+        f"tokens_dropped={st.tokens_dropped} "
+        f"tokens/NFE={st.tokens_per_nfe:.4f} tokens/s={st.tokens_per_s:.2f} "
+        f"(decode wall {st.wall_s:.3f}s, submit wall {secs:.3f}s) "
+        f"page_capacity={st.page_capacity} pages_peak={st.pages_peak} "
+        f"page_util={st.page_util:.4f} pages_shared={st.pages_shared} "
+        f"pages_freed={st.pages_freed} "
+        f"weight_bytes_streamed={st.weight_bytes_streamed}")
+    log(f"serving {label}: NFE a batch {[c['res'].nfe for c in calls]}")
+
+
+def own_rows(batch, shared_ids=()):
+    """The check's own prompt rows, tables' tasks and liveness for one
+    batch of (uid, task, prompt): BOS-encoded prompts left-padded after
+    the shared ids; dead slots mask-only."""
+    from repro_torch.data import tokenizer as tok
+
+    rows, tasks = [], []
+    width = PROMPT - len(shared_ids)
+    for _, task, prompt in batch:
+        ids = tok.encode(prompt, bos=True)[-width:]
+        rows.append(list(shared_ids) + tok.pad_left(ids, width))
+        tasks.append(task)
+    live = np.arange(BATCH) < len(batch)
+    rows += [[tok.MASK_ID] * PROMPT] * (BATCH - len(batch))
+    return np.asarray(rows, np.int32), tasks, live
+
+
+def own_tables(store, tasks):
+    """[B, nb, steps_cap]: each live row's task table, the static table
+    for dead slots."""
+    return np.stack([store.table(t) for t in tasks] + [store.static]
+                    * (BATCH - len(tasks))).astype(np.float32)
+
+
+def check_responses(label, responses, batches, calls):
+    """Every uid answered once, and each response's NFE and token counts
+    as the check's own EOS and mask truncation of its row gives them."""
+    from repro_torch.data import tokenizer as tok
+
+    by_uid = {r.uid: r for r in responses}
+    check(sorted(by_uid) == list(range(SERVE_REQUESTS))
+          and len(responses) == SERVE_REQUESTS,
+          f"{label}: every uid answered once")
+    for batch, call in zip(batches, calls):
+        toks = call["res"].tokens.cpu().numpy()
+        steps = call["res"].seq_steps.cpu().numpy()
+        for j, (uid, _, _) in enumerate(batch):
+            row = toks[j].tolist()
+            if tok.EOS_ID in row:
+                row = row[:row.index(tok.EOS_ID)]
+            row = [t for t in row if t != tok.MASK_ID]
+            r = by_uid[uid]
+            check((r.nfe, r.tokens_out, r.tokens_dropped)
+                  == (int(steps[j].sum()), len(row), NEW - len(row)),
+                  f"{label}: uid {uid}'s NFE and token counts")
+
+
+def same_live_rows(label, calls, batches, direct):
+    """The engine's token rows (live rows) equal the direct calls' bit
+    for bit."""
+    for b, (call, batch, res) in enumerate(zip(calls, batches, direct)):
+        n = len(batch)
+        same = torch.equal(call["res"].tokens[:n], res.tokens[:n])
+        log(f"{label} batch {b}: {n} live rows, engine NFE "
+            f"{call['res'].nfe}, direct NFE {res.nfe}, token rows equal: "
+            f"{same}")
+        check(same, f"{label} batch {b}: the engine's token rows equal "
+              f"the direct generate's")
+
+
+def serving_path(dev, kernels, params, cfg, dcfg):
+    """The port's serving runtime (``DiffusionEngine`` over the batch-
+    boundary ``Scheduler``) at LLaDA-8B's width and depth, with the main
+    path's decode config and ``EngineConfig(batch_size=8, prompt_len=128,
+    attn_impl="kernel")``, on 18 task requests (three batches: 8, 8 and 2
+    live rows with 6 dead slots):
+      1. a dense bf16 engine on an empty store: its first batch
+         calibrates all three tasks (K1 + K3, no other kernel);
+      2. two paged engines on that store, without and with a 64-token
+         shared system prefix (K4 + K3), leaking no page;
+      3. an int8 engine (weights quantized at construction) on that
+         store, one batch through the fused int8 epilogue (K5 + K6).
+    Each batch's token rows must equal, bit for bit, a direct
+    ``make_generate_fn`` call over prompt rows, tables and liveness that
+    the check builds itself (the paged engines: a dense call, and a paged
+    call over pages the check prefills itself), and each response's NFE
+    and token counts must follow from its row. Returns the launch counts
+    of the engines' runs (the direct calls are outside them)."""
+    from repro_torch.config.base import EngineConfig
+    from repro_torch.core.decoder import make_generate_fn
+    from repro_torch.core.osdt import CalibrationStore
+    from repro_torch.data import tokenizer as tok
+    from repro_torch.models import cache as cache_lib
+    from repro_torch.models import model as M
+    from repro_torch.models.quantize import (decode_weight_bytes,
+                                             quantize_decode_params)
+    from repro_torch.serving.engine import DiffusionEngine
+
+    card = card_line()
+    stream = serving_stream()
+    batches = [stream[i:i + BATCH] for i in range(0, len(stream), BATCH)]
+    ecfg = EngineConfig(batch_size=BATCH, prompt_len=PROMPT,
+                        attn_impl="kernel")
+    total = {n: 0 for n in kernels}
+
+    def engine_run(label, engine, reqs):
+        calls = record_batches(engine.scheduler)
+        reset_counts(kernels)
+        out, secs = serve_timed(engine, reqs)
+        counts = read_counts(kernels)
+        for n in total:
+            total[n] += counts[n]
+        log_engine(label, engine, calls, secs, card)
+        log(f"launches, serving {label}: {counts}")
+        return out, counts, calls
+
+    # 1. the dense bf16 engine, uncalibrated store
+    dense = DiffusionEngine(params, cfg, dcfg, ecfg=ecfg)
+    out, counts, calls = engine_run("dense bf16", dense, stream)
+    st = dense.stats
+    check(len(calls) == 3 and calls[0]["calibrated"] == []
+          and calls[1]["calibrated"] == sorted(t for _, t, _ in stream[:3]),
+          "the first batch calibrated all three tasks")
+    check(st.dead_slots == 6 and st.batches == 3 and st.requests == 18,
+          "dense engine: 3 batches, 6 dead slots")
+    check(counts["block_attention"] > 0 and counts["fused_step"] > 0
+          and all(counts[n] == 0 for n in (
+              "confidence", "paged_block_attention", "quantized_matmul",
+              "quantized_fused_step", "flash_attention")),
+          "the dense engine launched K1 and K3, and no other kernel")
+    check_responses("dense bf16", out, batches, calls)
+    gen = make_generate_fn(cfg, dcfg, attn_impl="kernel")
+    empty = CalibrationStore(dcfg)
+    direct = []
+    for b, (batch, call) in enumerate(zip(batches, calls)):
+        rows, tasks, live = own_rows(batch)
+        tables = own_tables(empty if b == 0 else dense.store, tasks)
+        check(np.array_equal(rows, call["prompt"])
+              and np.array_equal(tables, call["tables"])
+              and np.array_equal(live, call["live"]),
+              f"dense batch {b}: the engine's rows, tables and liveness are "
+              f"the check's own")
+        direct.append(gen(params, rows, tables, tok.MASK_ID, live,
+                          tok.EOS_ID))
+    same_live_rows("dense bf16", calls, batches, direct)
+    for b, (call, res) in enumerate(zip(calls, direct)):
+        check(torch.equal(call["res"].tokens, res.tokens),
+              f"dense batch {b}: every row, dead slots too, equal")
+    store = dense.store
+    del dense, direct, calls
+    torch.cuda.empty_cache()
+
+    # 2. paged engines with the dense engine's store
+    pdcfg = dataclasses.replace(dcfg, cache_layout="paged", page_size=PAGE)
+    paged = DiffusionEngine(params, cfg, pdcfg, ecfg=ecfg, store=store)
+    out, counts, calls = engine_run("paged", paged, stream)
+    check(counts["paged_block_attention"] > 0 and counts["fused_step"] > 0
+          and counts["block_attention"] == 0,
+          "the paged engine launched K4 and K3, and not K1")
+    check(paged.scheduler.allocator.in_use == 0, "the paged engine leaked "
+          "no page")
+    check_responses("paged", out, batches, calls)
+    direct = []
+    for batch, call in zip(batches, calls):
+        rows, tasks, live = own_rows(batch)
+        direct.append(gen(params, rows, own_tables(store, tasks),
+                          tok.MASK_ID, live, tok.EOS_ID))
+    same_live_rows("paged vs a direct dense call", calls, batches, direct)
+    del paged, direct, calls
+    torch.cuda.empty_cache()
+
+    ecfg_s = dataclasses.replace(ecfg, shared_prefix=SERVE_SYSTEM)
+    shared = DiffusionEngine(params, cfg, pdcfg, ecfg=ecfg_s, store=store)
+    sched = shared.scheduler
+    sp = sched.shared_len
+    n_shared = sp // PAGE
+    check(len(SERVE_SYSTEM) >= 64 and sp == 64 and n_shared == 4,
+          "the shared prefix rounds down to 4 whole pages")
+    out, counts, calls = engine_run("paged shared prefix", shared, stream)
+    st = shared.stats
+    check(st.pages_shared == n_shared and st.page_capacity
+          == n_shared + BATCH * sched.private_per_slot,
+          "pages_shared and page_capacity")
+    check(sched.allocator.in_use == n_shared,
+          "after run() only the shared pages stay allocated")
+    check(counts["paged_block_attention"] > 0 and counts["fused_step"] > 0
+          and counts["block_attention"] == 0,
+          "the shared-prefix engine launched K4 and K3, and not K1")
+    check_responses("paged shared prefix", out, batches, calls)
+    reused = set(calls[0]["pt"][calls[0]["pt"] >= 0].tolist()) & set(
+        calls[1]["pt"][calls[1]["pt"] >= 0].tolist())
+    log(f"paged shared prefix: {len(reused)} pages of batch 0 mapped again "
+        f"in batch 1")
+    # the check's own pool: the system ids prefilled into its own pages,
+    # forked into every live row
+    max_len = PROMPT + NEW
+    n_log = pdcfg.pages_per_seq(max_len)
+    n_priv = n_log - n_shared
+    pool = cache_lib.init_paged_kv_cache(
+        cfg.num_layers, BATCH, max_len, cfg.num_kv_heads,
+        cfg.resolved_head_dim, torch.bfloat16, page_size=PAGE,
+        num_pages=n_shared + BATCH * n_priv, device=dev)
+    kp, vp = pool["kp"], pool["vp"]
+    alloc = cache_lib.PageAllocator(n_shared + BATCH * n_priv)
+    sys_ids = tok.encode(SERVE_SYSTEM, bos=True)[:sp]
+    own = alloc.alloc(n_shared)
+    cache = {"attn": {"kp": kp, "vp": vp, "pt": torch.tensor(
+        [own + [-1] * n_priv], dtype=torch.int32, device=dev),
+        "pos": torch.full((max_len,), -1, dtype=torch.int32, device=dev),
+        "length": 0}}
+    M.prefill(params, cfg, torch.tensor([sys_ids], device=dev),
+              max_len=max_len, mode="full", cache=cache, page_size=PAGE)
+    gen_s = make_generate_fn(cfg, pdcfg, attn_impl="kernel",
+                             shared_prefix_len=sp)
+    direct = []
+    for batch, call in zip(batches, calls):
+        rows, tasks, live = own_rows(batch, sys_ids)
+        check(np.array_equal(rows, call["prompt"]),
+              "shared-prefix rows are the check's own")
+        forks = [alloc.fork(own, n_priv) for _ in batch]
+        pt = np.full((BATCH, n_log), -1, np.int32)
+        for j, (sh, priv) in enumerate(forks):
+            pt[j] = sh + priv
+        direct.append(gen_s(params, rows, own_tables(store, tasks),
+                            tok.MASK_ID, live, tok.EOS_ID, kp, vp, pt))
+        for sh, priv in forks:
+            alloc.free(sh)
+            alloc.free(priv)
+    same_live_rows("paged shared prefix vs the check's own pages", calls,
+                   batches, direct)
+    del shared, sched, direct, calls, pool, kp, vp, cache
+    torch.cuda.empty_cache()
+
+    # 3. the int8 fused engine, one batch
+    engine = DiffusionEngine(params, cfg, dcfg, store=store,
+                             ecfg=dataclasses.replace(ecfg,
+                                                      weight_dtype="int8"))
+    out, counts, calls = engine_run("int8 fused", engine, stream[:BATCH])
+    st = engine.stats
+    check(counts["quantized_matmul"] > 0
+          and counts["quantized_fused_step"] > 0
+          and all(counts[n] == 0 for n in ("confidence", "fused_step",
+                                           "paged_block_attention",
+                                           "flash_attention")),
+          "the int8 engine launched K5 and K6, and no K2, K3, K4 or K7")
+    qparams = quantize_decode_params(params, cfg)
+    wbytes = decode_weight_bytes(qparams, cfg)
+    log(f"int8 engine: weight_bytes_streamed {st.weight_bytes_streamed} = "
+        f"NFE {st.nfe} x {wbytes} B")
+    check(wbytes == INT8_WEIGHT_BYTES
+          and st.weight_bytes_streamed == st.nfe * wbytes,
+          "weight_bytes_streamed counts the int8 tree once a forward")
+    rows, tasks, live = own_rows(stream[:BATCH])
+    gen_q = make_generate_fn(cfg, dcfg, attn_impl="kernel",
+                             weight_dtype="int8")
+    res = gen_q(qparams, rows, own_tables(store, tasks), tok.MASK_ID, live,
+                tok.EOS_ID)
+    check(len(out) == BATCH, "the int8 engine answered its batch")
+    same_live_rows("int8 fused vs a direct int8 call", calls,
+                   [stream[:BATCH]], [res])
+    del engine, qparams, res, calls
+    torch.cuda.empty_cache()
+    return total
 
 
 # ---------------------------------------------------------------------------

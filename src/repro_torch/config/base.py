@@ -2,7 +2,11 @@
 
 A copy of the reference's ``ModelConfig`` / ``DecodeConfig`` cut down to
 the dense family: the same field names, defaults and ``reduced`` rule, so a
-config built here describes the same model as the reference's.
+config built here describes the same model as the reference's. The serving
+knobs, ``EngineConfig``, are the reference's field for field; the ones the
+port does not serve yet (step-sliced decode, drafting, the radix prefix
+cache, mesh sharding) are kept so a config reads the same in both
+packages, and the scheduler raises for them.
 """
 from __future__ import annotations
 
@@ -102,3 +106,60 @@ class DecodeConfig:
     def pages_per_seq(self, max_len: int) -> int:
         """Logical pages covering a ``max_len``-slot cache row."""
         return -(-max_len // self.page_size)
+
+
+@dataclass(frozen=True)
+class EngineConfig:
+    """Serving-engine / scheduler knobs (the reference's, SERVING.md).
+
+    The scheduler decodes fixed-shape ``[batch_size, prompt_len]`` batches
+    through one generate function; everything per request (threshold
+    table, liveness, EOS exit) is a runtime argument.
+    """
+
+    batch_size: int = 4
+    prompt_len: int = 64
+    cache_mode: str = "prefix"    # prefix | dual | none (decoder variants)
+    attn_impl: str = ""           # "" -> DecodeConfig.attn_impl
+    # "" -> DecodeConfig.weight_dtype; "int8" makes the scheduler quantize
+    # the params once at construction (quantize_decode_params) and serve
+    # every forward from the int8 tiles
+    weight_dtype: str = ""
+    # retire rows at the first completed block containing EOS
+    eos_early_exit: bool = True
+    # npz path for CalibrationStore persistence ("" disables): loaded at
+    # construction when no store is passed, saved after every calibration
+    store_path: str = ""
+    # paged layout: total pool pages; 0 -> shared pages + batch_size rows
+    num_pages: int = 0
+    # system prompt prepended to every request's prompt; with the paged
+    # layout its K/V pages are prefilled once and mapped into every slot
+    # (rounded down to whole pages)
+    shared_prefix: str = ""
+    # speculative block drafting (not ported: True, or draft_max_steps
+    # other than 1, raises)
+    spec_decode: bool = False
+    draft_max_steps: int = 1
+    # step-sliced decode loop; 0 is the batch-boundary runtime (>= 1 is
+    # not ported: raises)
+    slice_len: int = 0
+    # radix-tree prefix cache (not ported: True, or either sizing knob
+    # non-zero, raises)
+    prefix_cache: bool = False
+    prefix_cache_pages: int = 0
+    prefix_cache_watermark: float = 0.0
+    # mesh-sharded serving (not ported: > 1 raises)
+    data_parallel: int = 1
+    model_parallel: int = 1
+    # observability, all off by default: a ring-buffer tracer exported as
+    # Chrome/Perfetto trace_event JSON, and confidence-drift telemetry
+    # against each task's stored calibration profile
+    trace: bool = False
+    trace_capacity: int = 1 << 16
+    drift_telemetry: bool = False
+    drift_threshold: float = 0.95
+    drift_window: int = 32
+
+    def resolved_cache_mode(self) -> str:
+        assert self.cache_mode in ("prefix", "dual", "none"), self.cache_mode
+        return self.cache_mode

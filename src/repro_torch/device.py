@@ -11,11 +11,10 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     """``device`` as given, or CUDA when none is given.
 
     There is no silent CPU fallback: without CUDA the caller must ask for
-    the CPU explicitly.
+    the CPU explicitly, and a CUDA device asked for by name raises too.
     """
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
-    return torch.device("cuda")
+    return dev

@@ -458,3 +458,75 @@ def test_flash_attention_kernel(dev, B, H, S, T, D, causal, q_offset, dtype):
         err = (out.float() - want.float()).abs()
         assert bool((err <= 2 ** -7 * (want.float().abs() + pv)).all()), \
             float(err.max())
+
+
+def _record_batches(sched):
+    """``chip_smoke.record_batches``: the one recorder of the scheduler's
+    generate calls (inputs, page table and result of each batch)."""
+    import importlib.util
+    import pathlib
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).resolve().parents[1]
+        / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.record_batches(sched)
+
+
+def _on(tree, dev):
+    return {k: _on(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+def test_engine_on_card_matches_cpu(dev):
+    """A reduced serving engine (three tasks, two batches of 4, the first
+    calibrating all three) through the block attention (K1) and fused step
+    (K3) kernels on the card against the same engine on the CPU: the
+    reduced model decode's bar in ``chip_smoke.reduced_reference_check``,
+    >= 0.95 of the tokens equal (a float32 near-tie may flip) and the
+    calibrated tables within 1e-4; the batches and dead slots equal."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.config.base import DecodeConfig, EngineConfig
+    from repro_torch.config.registry import get_config
+    from repro_torch.data import tokenizer as tok
+    from repro_torch.data.tasks import TASKS
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import DiffusionEngine
+    from repro_torch.serving.scheduler import Request
+
+    cfg = dataclasses.replace(
+        get_config("llada-8b").reduced(num_layers=2, max_d_model=128,
+                                       vocab_size=tok.VOCAB),
+        mask_token_id=tok.MASK_ID)
+    dcfg = DecodeConfig(max_new_tokens=32, block_size=8, policy="osdt",
+                        cap=0.75, slack=0.2, step_fusion="fused")
+    ecfg = EngineConfig(batch_size=4, prompt_len=32, attn_impl="kernel")
+    rng = np.random.default_rng(0)
+    names = ("gsm8k-syn", "gpqa-syn", "humaneval-syn")
+    per = {t: TASKS[t].make(rng, 2) for t in names}
+    reqs = [Request(i, names[i % 3], per[names[i % 3]][i // 3].prompt)
+            for i in range(6)]
+    cpu = M.init_params(cfg, seed=0, device="cpu")
+    out = {}
+    for name, params in (("cpu", cpu), ("gpu", _on(cpu, dev))):
+        eng = DiffusionEngine(params, cfg, dcfg, ecfg=ecfg)
+        calls = _record_batches(eng.scheduler)
+        n0 = (cached_block_attention_kernel.launches,
+              fused_step_kernel.launches)
+        eng.submit(list(reqs))
+        n1 = (cached_block_attention_kernel.launches,
+              fused_step_kernel.launches)
+        out[name] = (eng, torch.cat([c["res"].tokens.cpu() for c in calls]),
+                     n0, n1)
+    (ce, ct, c0, c1), (ge, gt, g0, g1) = out["cpu"], out["gpu"]
+    assert c1 == c0 and all(b > a for a, b in zip(g0, g1))
+    assert (ge.stats.batches, ge.stats.dead_slots, ge.stats.requests) == \
+        (ce.stats.batches, ce.stats.dead_slots, ce.stats.requests) == (2, 2, 6)
+    for t in names:
+        np.testing.assert_allclose(ge.store.tables[t], ce.store.tables[t],
+                                   rtol=0, atol=1e-4)
+    assert float((gt == ct).float().mean()) >= 0.95

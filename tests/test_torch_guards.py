@@ -12,6 +12,7 @@ from repro_torch.config.registry import get_config
 from repro_torch.kernels.block_attention import cached_block_attention_kernel
 from repro_torch.kernels.confidence import fused_confidence_kernel
 from repro_torch.kernels.fused_step import fused_step_kernel
+from repro_torch.launch import serve
 from repro_torch.models import cache as cache_lib
 from repro_torch.models import model as M
 
@@ -50,9 +51,22 @@ def test_entry_points_refuse_silent_cpu_fallback(monkeypatch):
         cache_lib.init_kv_cache(1, 1, 4, 1, 8, torch.float32)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         convert.params_from_numpy({})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        M.init_params(cfg, seed=0, device="cuda")
     params = M.init_params(cfg, seed=0, device="cpu")
     assert params["embed"].device.type == "cpu"
     assert params["layers"]["wq"].shape == (1, 64, 32)
+
+
+@pytest.mark.parametrize("device", [[], ["--device", "cuda"]])
+def test_serve_refuses_silent_cpu_fallback(monkeypatch, device):
+    """The launcher serves on CUDA unless ``--device cpu`` is given: without
+    CUDA it raises before reading the checkpoint."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--ckpt", "absent.msgpack"] + device)
+    with pytest.raises(FileNotFoundError):
+        serve.main(["--ckpt", "absent.msgpack", "--device", "cpu"])
 
 
 def test_kernel_wrappers_refuse_other_devices():
