@@ -14,7 +14,9 @@ Needs one CUDA device and exits non-zero without one. In order it:
      attention kernel (K4) bit for bit against the dense one (K1) on the
      gathered view, and the int8-head fused step (K6) against the int8
      matmul's float32 head (K5), which share one body: K6's tokens are the
-     argmax of K5's logits;
+     argmax of K5's logits; and K1 and K4 on the sliced decode's mixed
+     per-row cursors (three cursors, a sentinel slot, a retired row, a
+     page hole; the prefix and the dual forms) at the main path's shape;
   3. drives the main path: OSDT decode (Phase 1 on one row, Phase 2 on the
      batch) of LLaDA-8B at full width and depth with random weights from a
      seed, through ``OSDTSession`` with the block attention and fused step
@@ -46,7 +48,14 @@ Needs one CUDA device and exits non-zero without one. In order it:
      its store, without and with a shared system prefix (K4 + K3, no page
      leaked), and an int8 engine (K5 + K6), each batch's token rows equal
      bit for bit to a direct generate call over rows, tables and pages
-     that the check builds itself; then the int8 path: the weights quantized
+     that the check builds itself; then the sliced serving path: the
+     step-sliced engine (``slice_len=1``) on the same store and stream,
+     submitted staggered (4 requests, one slice, then 8 more), dense
+     (K1 + K3) and paged with the shared system prefix (K4 + K3) on the
+     first 12 requests, every answer equal to the batch engine's of the
+     same config, with mid-generation admissions, mixed-cursor slices,
+     rows re-admitted into retired rows' slots and pages, no page leaked
+     and no plain version run; then the int8 path: the weights quantized
      on the card, the same OSDT decode through the unfused epilogue with
      the int8 matmul kernel (K5) in every projection and the head, the
      same Phase 2 on the dequantized weights through the bf16 path, and
@@ -100,6 +109,16 @@ PAGE, SHARED = 16, 64
 
 def log(*a):
     print(*a, flush=True)
+
+
+def timed(label, fn, *a, **k):
+    """``fn(*a, **k)``, its wall time to the device's end logged as
+    ``time <label>``."""
+    t0 = time.perf_counter()
+    res = fn(*a, **k)
+    torch.cuda.synchronize()
+    log(f"time {label}: {time.perf_counter() - t0:.1f}s")
+    return res
 
 
 def card_line() -> str:
@@ -313,6 +332,7 @@ def check_kernels(dev):
                   "bit for bit")
             log("K4 main vs K1 on the gathered view: bitwise equal")
 
+    check_mixed_cursors(gen, dev)
     errs["confidence"] = check_confidence(gen, dev)
     R, V = BATCH * BLOCK, 126464
 
@@ -380,6 +400,85 @@ def check_kernels(dev):
     check_shared_head_body(gen, dev)
     errs["flash_attention"] = check_flash_attention(gen, dev)
     return errs
+
+
+def check_mixed_cursors(gen, dev):
+    """K1 and K4 on the sliced decode's geometry at the main path's shape
+    (B=8, bs=32, 32 heads x 128, T=256, bf16): rows at three cursors,
+    each with its own slot, block start and kv_limit (its committed
+    extent, below the union of valid slots), one sentinel slot (a
+    finished row's commit: its fresh block hidden), one retired row
+    (kv_limit 0), one row with a hole in its page table; then the dual
+    form: the fresh block at the shared scratch slot and each row
+    excluding its own block, per row. Each kernel is held against its
+    plain version, and K4 over the fully mapped table against K1 on the
+    gathered view bit for bit."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.block_attention import \
+        cached_block_attention_kernel, paged_block_attention_kernel, \
+        row_scalars
+
+    H, D, T = 32, 128, PROMPT + NEW
+    cursor = torch.tensor([0, 1, 2, 0, 1, 2, 1, 0], dtype=torch.int32,
+                          device=dev)
+    start = PROMPT + cursor * BLOCK
+    sentinel, retired = 6, 7
+    forms = {
+        "prefix": dict(fill=PROMPT + 2 * BLOCK,
+                       slot=torch.where(torch.arange(BATCH, device=dev)
+                                        == sentinel, T, start),
+                       kv_limit=torch.where(torch.arange(BATCH, device=dev)
+                                            == retired, 0, start),
+                       exclude_start=None, exclude_len=0),
+        "dual": dict(fill=T - BLOCK,
+                     slot=torch.where(torch.arange(BATCH, device=dev)
+                                      == sentinel, T, T - BLOCK),
+                     kv_limit=torch.where(torch.arange(BATCH, device=dev)
+                                          == retired, 0, T - BLOCK),
+                     exclude_start=start, exclude_len=BLOCK),
+    }
+    worst = 0.0
+    for name, f in forms.items():
+        x = paged_inputs(gen, dev, B=BATCH, bs=BLOCK, H=H, Kh=H, D=D, T=T,
+                         fill=f["fill"], ps=PAGE)
+        holed = x["pt"].clone()
+        holed[2, 3] = -1                       # slots 48..63 of row 2
+        sc = row_scalars(BATCH, dev, slot=f["slot"], block_start=start,
+                         kv_limit=f["kv_limit"],
+                         exclude_start=f["exclude_start"],
+                         exclude_len=f["exclude_len"])
+        geo = dict(slot=f["slot"], block_start=start,
+                   kv_limit=f["kv_limit"],
+                   exclude_start=f["exclude_start"],
+                   exclude_len=f["exclude_len"])
+        ck = gather_view(x["pk"][0], x["pt"], T, PAGE)
+        cv = gather_view(x["pv"][0], x["pt"], T, PAGE)
+        ops = (x["q"], x["bk"], x["bv"])
+        k1 = cached_block_attention_kernel(x["q"], ck, cv, x["bk"], x["bv"],
+                                           x["pos"], sc,
+                                           exclude_len=f["exclude_len"])
+        k4h = paged_block_attention_kernel(
+            x["q"], x["pk"][0], x["pv"][0], x["bk"], x["bv"], x["pos"],
+            holed, sc, exclude_len=f["exclude_len"])
+        k4 = paged_block_attention_kernel(
+            x["q"], x["pk"][0], x["pv"][0], x["bk"], x["bv"], x["pos"],
+            x["pt"], sc, exclude_len=f["exclude_len"])
+        torch.cuda.synchronize()
+        ok1, e1 = bf16_close(k1, ref.cached_block_attention_ref(
+            ops[0], ck, cv, ops[1], ops[2], x["pos"], **geo))
+        ok4, e4 = bf16_close(k4h, ref.paged_block_attention_ref(
+            ops[0], x["pk"][0], x["pv"][0], ops[1], ops[2], x["pos"], holed,
+            **geo))
+        log(f"K1 mixed cursors ({name}): max_abs_err={e1:.3e}; K4 with a "
+            f"page hole: max_abs_err={e4:.3e}; cursors "
+            f"{cursor.tolist()}, sentinel row {sentinel}, retired row "
+            f"{retired}")
+        check(ok1 and ok4, f"K1 and K4 on mixed per-row cursors ({name}) "
+              f"within 2^-7 relative + 1e-4")
+        check(torch.equal(k4, k1), f"K4 on mixed cursors ({name}) equals "
+              f"K1 on the gathered view bit for bit")
+        worst = max(worst, e1, e4)
+    return worst
 
 
 def k2_cases(gen, dev):
@@ -959,24 +1058,33 @@ def main_path(dev, kernels):
     log(f"peak device memory: {torch.cuda.max_memory_allocated() / 1e9:.2f}"
         f" GB")
     # compare-only phases: their launches are outside every path's count
-    replay_path(params, cfg, dcfg, session.store, prompts)
-    k3_replay_path(params, cfg, dcfg, session.store, prompts)
-    k2_replay_path(params, cfg, dcfg, session.store, prompts)
-    nfe_report(params, cfg, dcfg, session.store)
-    paged_counts = paged_path(dev, kernels, params, cfg, dcfg, table,
-                              prompts, out["phase2_osdt_fused"][0])
-    serving_counts = serving_path(dev, kernels, params, cfg, dcfg)
-    int8_counts, int8_sessions = int8_path(dev, kernels, params, cfg, dcfg,
-                                           prompts)
-    flash_counts = flash_path(dev, kernels, params, cfg, prompts)
+    timed("K1 replay", replay_path, params, cfg, dcfg, session.store,
+          prompts)
+    timed("K3 replay", k3_replay_path, params, cfg, dcfg, session.store,
+          prompts)
+    timed("K2 replay", k2_replay_path, params, cfg, dcfg, session.store,
+          prompts)
+    timed("NFE report", nfe_report, params, cfg, dcfg, session.store)
+    paged_counts = timed("paged path", paged_path, dev, kernels, params, cfg,
+                         dcfg, table, prompts, out["phase2_osdt_fused"][0])
+    serving_counts, store, answers = timed(
+        "serving path", serving_path, dev, kernels, params, cfg, dcfg)
+    sliced_counts = timed("sliced serving path", sliced_serving_path,
+                          kernels, params, cfg, dcfg, store, answers)
+    int8_counts, int8_sessions = timed("int8 path", int8_path, dev, kernels,
+                                       params, cfg, dcfg, prompts)
+    flash_counts = timed("flash path", flash_path, dev, kernels, params, cfg,
+                         prompts)
     # last: the profiler may leave the host slower for what follows it
-    profile_phase2(session, prompts, "bf16 fused")
+    timed("profile bf16 fused", profile_phase2, session, prompts,
+          "bf16 fused")
     for label, s in int8_sessions.items():
-        profile_phase2(s, prompts, label)
+        timed(f"profile {label}", profile_phase2, s, prompts, label)
     del params, session, int8_sessions
     torch.cuda.empty_cache()
     return {n: counts[n] + paged_counts[n] + serving_counts[n]
-            + int8_counts[n] + flash_counts[n] for n in counts}
+            + sliced_counts[n] + int8_counts[n] + flash_counts[n]
+            for n in counts}
 
 
 def warm_repeat(session, prompts, label, first, first_secs):
@@ -1452,7 +1560,8 @@ def serving_path(dev, kernels, params, cfg, dcfg):
     the check builds itself (the paged engines: a dense call, and a paged
     call over pages the check prefills itself), and each response's NFE
     and token counts must follow from its row. Returns the launch counts
-    of the engines' runs (the direct calls are outside them)."""
+    of the engines' runs (the direct calls are outside them), the
+    calibrated store, and the paged engines' responses by label."""
     from repro_torch.config.base import EngineConfig
     from repro_torch.core.decoder import make_generate_fn
     from repro_torch.core.osdt import CalibrationStore
@@ -1527,6 +1636,7 @@ def serving_path(dev, kernels, params, cfg, dcfg):
     check(paged.scheduler.allocator.in_use == 0, "the paged engine leaked "
           "no page")
     check_responses("paged", out, batches, calls)
+    answers = {"paged": out}
     direct = []
     for batch, call in zip(batches, calls):
         rows, tasks, live = own_rows(batch)
@@ -1554,6 +1664,7 @@ def serving_path(dev, kernels, params, cfg, dcfg):
           and counts["block_attention"] == 0,
           "the shared-prefix engine launched K4 and K3, and not K1")
     check_responses("paged shared prefix", out, batches, calls)
+    answers["paged shared prefix"] = out
     reused = set(calls[0]["pt"][calls[0]["pt"] >= 0].tolist()) & set(
         calls[1]["pt"][calls[1]["pt"] >= 0].tolist())
     log(f"paged shared prefix: {len(reused)} pages of batch 0 mapped again "
@@ -1627,6 +1738,162 @@ def serving_path(dev, kernels, params, cfg, dcfg):
                    [stream[:BATCH]], [res])
     del engine, qparams, res, calls
     torch.cuda.empty_cache()
+    return total, store, answers
+
+
+# ---------------------------------------------------------------------------
+# sliced serving path: the step-sliced engines on the serving path's store
+# and stream, staggered, each answer held to the batch engine's
+# ---------------------------------------------------------------------------
+
+# the staggered stream: SLICED_HEAD requests, one slice, then the rest of
+# the serving stream's first SLICED_REQS (more than the batch, so retired
+# rows' slots and pages are handed to new requests mid-batch)
+SLICED_HEAD, SLICED_REQS = 4, 12
+
+
+class PlainRefused:
+    """Within the block, every plain version a kernel path could fall
+    back to raises: the block attention and fused step plain versions and
+    the plain attention and confidence paths the decode could take."""
+
+    def __init__(self):
+        from repro_torch.core import decoder
+        from repro_torch.kernels import (block_attention, fused_step,
+                                         quantized_matmul)
+        from repro_torch.models import model
+
+        self.sites = [(model, "cached_block_attend"),
+                      (model, "paged_cached_block_attend"),
+                      (decoder, "confidence"),
+                      (block_attention, "cached_block_attention_ref"),
+                      (block_attention, "paged_block_attention_ref"),
+                      (fused_step, "fused_step_plain"),
+                      (fused_step, "quantized_fused_step_plain"),
+                      (quantized_matmul, "quantized_matmul_ref")]
+        self.saved = []
+
+    def __enter__(self):
+        for mod, name in self.sites:
+            self.saved.append(getattr(mod, name))
+
+            def refuse(*a, _name=name, **k):
+                raise RuntimeError(f"plain version {_name} ran on the card")
+
+            setattr(mod, name, refuse)
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name), fn in zip(self.sites, self.saved):
+            setattr(mod, name, fn)
+        return False
+
+
+def record_cursors(sched):
+    """Wrap the scheduler's slice function (in the check, not the
+    program): before each slice, the cursors of the live rows. Returns
+    the list of per-slice cursor lists."""
+    seen, real = [], sched._slice_fn
+
+    def slice_fn(params, carry, *a):
+        live = carry.live.cpu().numpy()
+        seen.append(carry.cursor.cpu().numpy()[live].tolist())
+        return real(params, carry, *a)
+
+    sched._slice_fn = slice_fn
+    return seen
+
+
+def sliced_serving_path(kernels, params, cfg, dcfg, store, answers):
+    """The step-sliced serving runtime (``EngineConfig(slice_len=1)``) at
+    LLaDA-8B's width and depth, on the serving path's calibrated store and
+    the first ``SLICED_REQS`` requests of its stream, submitted staggered
+    (``SLICED_HEAD`` requests, one ``slice_step()``, then the rest), so
+    rows are admitted while others are mid-decode, most slices run rows
+    at different cursors, and the last requests take over retired rows'
+    slots and pages:
+      (a) dense (K1 + K3), held uid for uid to the paged batch engine's
+          answers (K4 is K1 on the gathered view);
+      (b) paged with the serving path's shared system prompt (K4 + K3),
+          held to the shared-prefix batch engine's answers, leaking no
+          page.
+    Every answer's text and NFE must equal the batch engine's; each
+    engine must admit mid-generation, run a slice with mixed cursors and
+    at least ``nb`` slices, and launch its kernels and no plain version.
+    Returns the launch counts of the two runs."""
+    from repro_torch.config.base import EngineConfig
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.scheduler import Scheduler
+
+    card = card_line()
+    reqs = [Request(*r) for r in serving_stream()[:SLICED_REQS]]
+    nb = NEW // BLOCK
+    ecfg = EngineConfig(batch_size=BATCH, prompt_len=PROMPT,
+                        attn_impl="kernel", slice_len=1)
+    pdcfg = dataclasses.replace(dcfg, cache_layout="paged", page_size=PAGE)
+    total = {n: 0 for n in kernels}
+    for label, dc, ec, want, used in (
+            ("dense", dcfg, ecfg, answers["paged"],
+             ("block_attention", "fused_step")),
+            ("paged shared prefix", pdcfg,
+             dataclasses.replace(ecfg, shared_prefix=SERVE_SYSTEM),
+             answers["paged shared prefix"],
+             ("paged_block_attention", "fused_step"))):
+        sched = Scheduler(params, cfg, dc, ecfg=ec, store=store)
+        cursors = record_cursors(sched)
+        reset_counts(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with PlainRefused():
+            sched.submit(reqs[:SLICED_HEAD])
+            out = sched.slice_step()
+            sched.submit(reqs[SLICED_HEAD:])
+            out += sched.run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = read_counts(kernels)
+        for n in total:
+            total[n] += counts[n]
+        st = sched.stats
+        mixed = sum(len(set(c)) > 1 for c in cursors)
+        ttfb = np.array([r.ttfb_s for r in out])
+        log(f"sliced serving {label} [{card}]: requests={st.requests} "
+            f"slices={st.slices} mid_admits={st.mid_admits} "
+            f"mixed-cursor slices={mixed} prefill_nfe={st.prefill_nfe} "
+            f"NFE={st.nfe} tokens={st.tokens} decode wall {st.wall_s:.3f}s "
+            f"(run wall {secs:.3f}s) tokens/s={st.tokens_per_s:.2f} "
+            f"ms/forward={st.wall_s / st.nfe * 1e3:.2f} ttfb p50/p95/max "
+            f"{np.percentile(ttfb, 50):.3f}/{np.percentile(ttfb, 95):.3f}/"
+            f"{ttfb.max():.3f}s pages_peak={st.pages_peak} "
+            f"pages_freed={st.pages_freed}")
+        log(f"sliced serving {label}: live cursors before each slice "
+            f"{cursors}")
+        log(f"launches, sliced serving {label}: {counts}")
+        by_uid = {r.uid: r for r in want}
+        check(sorted(r.uid for r in out) == sorted(r.uid for r in reqs),
+              f"sliced {label}: every uid answered once")
+        differ = [r.uid for r in out if (r.text, r.nfe, r.tokens_out)
+                  != (by_uid[r.uid].text, by_uid[r.uid].nfe,
+                      by_uid[r.uid].tokens_out)]
+        log(f"sliced {label}: {len(out) - len(differ)} of {len(out)} "
+            f"answers equal the batch engine's; differ: {differ}")
+        check(not differ, f"sliced {label}: every answer's text and NFE "
+              f"equal the batch engine's")
+        check(st.mid_admits > 0 and mixed > 0 and st.slices >= nb,
+              f"sliced {label}: mid-generation admissions, a mixed-cursor "
+              f"slice, at least nb slices")
+        check(all(counts[n] > 0 for n in used)
+              and all(counts[n] == 0 for n in kernels if n not in used),
+              f"sliced {label}: launched {', '.join(used)} and no other "
+              f"kernel")
+        if sched.paged:
+            n_shared = sched.shared_len // PAGE
+            check(sched.allocator.in_use == n_shared
+                  and st.pages_freed == len(reqs) * sched.private_per_slot,
+                  f"sliced {label}: no page leaked (only the {n_shared} "
+                  f"shared pages stay; every private page freed)")
+        del sched
+        torch.cuda.empty_cache()
     return total
 
 
@@ -2832,6 +3099,7 @@ KERNEL_META = {
 
 
 def main() -> int:
+    start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2880,8 +3148,8 @@ def main() -> int:
     counts = main_path(dev, kernels)
     log(f"main path done ({time.perf_counter() - t0:.1f}s)")
     check(all(c > 0 for c in counts.values()), "every kernel launched")
-    reduced_reference_check(dev)
-    timing = time_kernels(dev)
+    timed("reduced reference check", reduced_reference_check, dev)
+    timing = timed("kernel timings", time_kernels, dev)
 
     rows = []
     for name, (source, replaces) in KERNEL_META.items():
@@ -2892,6 +3160,7 @@ def main() -> int:
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
                      "bound_by": t["bound"][1],
                      "library_ms": t["library_ms"]})
+    log(f"script wall {time.perf_counter() - start:.1f}s")
     log(card)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

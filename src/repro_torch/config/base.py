@@ -4,8 +4,8 @@ A copy of the reference's ``ModelConfig`` / ``DecodeConfig`` cut down to
 the dense family: the same field names, defaults and ``reduced`` rule, so a
 config built here describes the same model as the reference's. The serving
 knobs, ``EngineConfig``, are the reference's field for field; the ones the
-port does not serve yet (step-sliced decode, drafting, the radix prefix
-cache, mesh sharding) are kept so a config reads the same in both
+port does not serve yet (drafting, the radix prefix cache, mesh
+sharding) are kept so a config reads the same in both
 packages, and the scheduler raises for them.
 """
 from __future__ import annotations
@@ -140,8 +140,9 @@ class EngineConfig:
     # other than 1, raises)
     spec_decode: bool = False
     draft_max_steps: int = 1
-    # step-sliced decode loop; 0 is the batch-boundary runtime (>= 1 is
-    # not ported: raises)
+    # step-sliced decode loop: decode slice_len blocks per slice and
+    # admit queued requests into freed slots mid-generation; 0 is the
+    # batch-boundary runtime
     slice_len: int = 0
     # radix-tree prefix cache (not ported: True, or either sizing knob
     # non-zero, raises)

@@ -8,7 +8,7 @@ plus ``--device``.
 It answers on CUDA unless ``--device cpu`` is given, and raises without
 CUDA otherwise. The checkpoint is the reference's msgpack file (read by
 ``convert.load_checkpoint``), for the bench configuration. The flags of
-serving features the port lacks (``--slice-len`` >= 1, ``--spec-decode``,
+serving features the port lacks (``--spec-decode``,
 ``--draft-max-steps`` other than 1, ``--prefix-cache``, a non-zero
 ``--prefix-cache-pages`` or ``--prefix-cache-watermark``,
 ``--data-parallel`` / ``--model-parallel`` > 1) raise
@@ -75,8 +75,10 @@ def main(argv=None) -> None:
                     help="draft blocks predicted to clear in <= this many "
                          "steps (spec decode; not ported: other than 1 raises)")
     ap.add_argument("--slice-len", type=int, default=0,
-                    help="step-sliced decode loop (>= 1 is not ported: "
-                         "raises); 0 = batch-boundary admission")
+                    help="step-sliced decode loop: decode N blocks per "
+                         "slice and admit queued requests into freed slots "
+                         "mid-generation (0 = batch-boundary admission, "
+                         "SERVING.md 'Async admission')")
     ap.add_argument("--prefix-cache", action="store_true",
                     help="radix-tree prefix cache (not ported: raises)")
     ap.add_argument("--prefix-cache-pages", type=int, default=0,
@@ -149,6 +151,13 @@ def main(argv=None) -> None:
         print(f"# pages: capacity={st.page_capacity} "
               f"peak={st.pages_peak} ({st.page_util:.0%}) "
               f"shared={st.pages_shared} freed={st.pages_freed}")
+    if st.slices:
+        q = [r.queue_s for r in out]
+        ttfb = [r.ttfb_s for r in out]
+        print(f"# sliced: {st.slices} slices, {st.mid_admits} "
+              f"mid-generation admits, queue p95 "
+              f"{np.percentile(q, 95) * 1e3:.1f}ms, ttfb p95 "
+              f"{np.percentile(ttfb, 95) * 1e3:.1f}ms")
     obs = engine.obs
     if args.drift and obs.drift is not None:
         for task, row in sorted(obs.drift.snapshot().items()):

@@ -152,8 +152,13 @@ def attention(q, k, v, *, q_pos, kv_pos, mode: str = "causal",
                         window=window, kv_valid=kv_valid, kv_limit=kv_limit)
 
 
+def is_row(v) -> bool:
+    """Whether a geometry argument is per row: a rank-1 tensor."""
+    return isinstance(v, torch.Tensor) and v.ndim == 1
+
+
 def cached_block_attend(q, cache_k, cache_v, block_k, block_v, kv_pos, *,
-                        slot: int, q_pos, kv_limit=None, exclude_start=None,
+                        slot, q_pos, kv_limit=None, exclude_start=None,
                         exclude_len: int = 0, window: int = 0,
                         impl: str = "auto", row_valid=None):
     """The plain cached block step attention (the reference's scalar
@@ -164,9 +169,26 @@ def cached_block_attend(q, cache_k, cache_v, block_k, block_v, kv_pos, *,
     positional validity (the paged layout passes its page-mapped mask);
     the fresh block always stays valid.
 
+    Per-row forms (the step-sliced decode loop, where each row denoises
+    its own cursor block): ``slot`` [B] writes row ``b``'s fresh block at
+    its own slot (a sentinel ``>= T`` drops the write: a row with nothing
+    to commit), ``q_pos`` [B, S] carries per-row positions (RoPE is
+    already applied; "full" masks ignore the values), ``exclude_start``
+    [B] excludes each row's own range, and ``kv_limit`` [B] masks each
+    row to its own extent (the flash bound becomes the batch max). Any
+    per-row argument switches to :func:`_cached_block_attend_rows`, which
+    gives uniform rows this path's values bit for bit.
+
     Returns ``(out, (ck, cv))``: the written copies, for callers that
     commit the step. The inputs are left unchanged.
     """
+    if any(is_row(a) for a in (slot, exclude_start, kv_limit)) \
+            or q_pos.ndim == 2:
+        return _cached_block_attend_rows(
+            q, cache_k, cache_v, block_k, block_v, kv_pos, slot=slot,
+            q_pos=q_pos, kv_limit=kv_limit, exclude_start=exclude_start,
+            exclude_len=exclude_len, window=window, impl=impl,
+            row_valid=row_valid)
     ck, cv = cache_lib.kv_write_slice(cache_k.clone(), cache_v.clone(),
                                       block_k, block_v, slot)
     pos = cache_lib.pos_write_slice(kv_pos.clone(), q_pos, slot)
@@ -185,8 +207,60 @@ def cached_block_attend(q, cache_k, cache_v, block_k, block_v, kv_pos, *,
     return out, (ck, cv)
 
 
+def _cached_block_attend_rows(q, cache_k, cache_v, block_k, block_v, kv_pos,
+                              *, slot, q_pos, kv_limit, exclude_start,
+                              exclude_len: int, window: int, impl: str,
+                              row_valid):
+    """Per-row generalisation of :func:`cached_block_attend` (see there).
+
+    The mask is assembled as the scalar path assembles it, ``(pos-valid
+    minus the exclusion) AND (row mask OR own fresh block)``, per row, so
+    uniform rows give the scalar path's values bit for bit.
+    """
+    if window:
+        raise ValueError("the per-row block attend has no sliding window")
+    B, S = block_k.shape[:2]
+    T = cache_k.shape[1]
+    dev = kv_pos.device
+    ids = torch.arange(T, dtype=torch.int32, device=dev)
+    q2 = q_pos if q_pos.ndim == 2 else q_pos[None].expand(B, S)
+    if is_row(slot):
+        slot_r = slot.to(dev, torch.int32)
+        idx = cache_lib.rows_write_index(slot_r, S, T)
+        ck, cv = cache_lib.kv_write_slice_rows(
+            cache_k.clone(), cache_v.clone(), block_k, block_v, slot_r,
+            index=idx)
+        pos = cache_lib.pos_write_slice_rows(kv_pos.clone(), q2, slot_r,
+                                             index=idx)
+    else:
+        slot_r = torch.full((B,), int(slot), dtype=torch.int32, device=dev)
+        ck, cv = cache_lib.kv_write_slice(cache_k.clone(), cache_v.clone(),
+                                          block_k, block_v, int(slot))
+        pos = cache_lib.pos_write_slice(kv_pos.clone(), q2[0], int(slot))
+    valid = cache_valid_mask(pos)[None].expand(B, T)
+    if exclude_start is not None and exclude_len:
+        exc = torch.as_tensor(exclude_start, dtype=torch.int32,
+                              device=dev).reshape(-1).expand(B)
+        valid = valid & ~((ids[None] >= exc[:, None])
+                          & (ids[None] < exc[:, None] + exclude_len))
+    rv = row_valid
+    if is_row(kv_limit):
+        lim = ids[None] < kv_limit.to(dev)[:, None]
+        rv = lim if rv is None else rv & lim
+        kv_limit = kv_limit.max()  # flash bound: the batch-max extent
+    if rv is not None:
+        in_block = (ids[None] >= slot_r[:, None]) \
+            & (ids[None] < slot_r[:, None] + S)
+        valid = valid & (rv | in_block)
+    bound = None if kv_limit is None else \
+        max(int(kv_limit), int(slot_r.max()) + S)
+    out = attention(q, ck, cv, q_pos=q2[0], kv_pos=torch.clamp(pos, min=0),
+                    mode="full", kv_valid=valid, impl=impl, kv_limit=bound)
+    return out, (ck, cv)
+
+
 def paged_cached_block_attend(q, pool_k, pool_v, block_k, block_v,
-                              page_table, kv_pos, *, slot: int, q_pos,
+                              page_table, kv_pos, *, slot, q_pos,
                               page_size: int, kv_limit=None, row_limit=None,
                               exclude_start=None, exclude_len: int = 0,
                               window: int = 0, impl: str = "auto"):
@@ -205,7 +279,7 @@ def paged_cached_block_attend(q, pool_k, pool_v, block_k, block_v,
     T = kv_pos.shape[0]
     ck, cv, mapped = cache_lib.paged_kv_gather(pool_k, pool_v, page_table,
                                                T, page_size=page_size)
-    if kv_limit is not None and torch.as_tensor(kv_limit).ndim == 1:
+    if is_row(kv_limit):
         row_limit = kv_limit if row_limit is None else \
             torch.minimum(row_limit, kv_limit)
         kv_limit = kv_limit.max()

@@ -21,7 +21,7 @@ Writes through an unmapped entry are dropped, in place as above.
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -88,6 +88,48 @@ def pos_write_slice(pos: torch.Tensor, positions: torch.Tensor,
     return pos
 
 
+def rows_write_index(starts: torch.Tensor, S: int, T: int
+                     ) -> Tuple[torch.Tensor, ...]:
+    """The in-range entries of a per-row write of S slots, row ``b`` at
+    slot ``starts[b]``: (row, chunk position, slot), one long tensor each.
+    A start ``>= T`` (the write-gating sentinel of a row with nothing to
+    commit) drops its row, and slots past ``T`` drop. torch has no
+    dropping scatter, so the entries are filtered here (one host sync);
+    a block step builds the index once for all its layers."""
+    slots = starts.to(torch.int64)[:, None] + torch.arange(
+        S, dtype=torch.int64, device=starts.device)              # [B, S]
+    b, s = torch.nonzero((slots >= 0) & (slots < T), as_tuple=True)
+    return b, s, slots[b, s]
+
+
+def kv_write_slice_rows(cache_k: torch.Tensor, cache_v: torch.Tensor,
+                        k_new: torch.Tensor, v_new: torch.Tensor,
+                        starts: torch.Tensor, index=None):
+    """Per-row companion of :func:`kv_write_slice`, in place: row ``b``'s
+    [S] chunk lands at slot ``starts[b]`` of its own cache row (no ring
+    wrap: the sliced decode loop owns full-length buffers). A start ``>=
+    T`` drops the row's write. ``index`` is a prebuilt
+    :func:`rows_write_index`."""
+    b, s, slot = index if index is not None else rows_write_index(
+        starts, k_new.shape[1], cache_k.shape[1])
+    cache_k[b, slot] = k_new[b, s].to(cache_k.dtype)
+    cache_v[b, slot] = v_new[b, s].to(cache_v.dtype)
+    return cache_k, cache_v
+
+
+def pos_write_slice_rows(pos: torch.Tensor, positions: torch.Tensor,
+                         starts: torch.Tensor, index=None) -> torch.Tensor:
+    """Per-row companion of :func:`pos_write_slice`, in place: mark every
+    row's written slots valid in the SHARED [T] pos row (a union). Slot
+    ranges are disjoint across rows, or identical with identical values
+    when rows are uniform, so the order of the writes cannot matter.
+    Sentinel starts (``>= T``) drop. positions [B, S]."""
+    b, s, slot = index if index is not None else rows_write_index(
+        starts, positions.shape[1], pos.shape[0])
+    pos[slot] = positions[b, s].to(torch.int32)
+    return pos
+
+
 # ---------------------------------------------------------------------------
 # paged KV: pool init, gather/scatter through page tables
 # ---------------------------------------------------------------------------
@@ -120,18 +162,28 @@ def identity_page_table(batch: int, max_len: int, page_size: int,
         * n_log + ar[None, :]
 
 
-def _page_index(page_table: torch.Tensor, start: int, S: int,
+def _page_index(page_table: torch.Tensor, start, S: int,
                 page_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(physical page [B, S], in-page offset [S]) of logical slots
-    ``start + arange(S)``. Unmapped or out-of-range entries come back
-    negative; callers clamp (gather) or drop (scatter)."""
-    slots = int(start) + torch.arange(S, dtype=torch.int32,
-                                      device=page_table.device)
+    """(physical page [B, S], in-page offset [S] or [B, S]) of logical
+    slots ``start + arange(S)``. ``start`` is an int (every row writes the
+    same logical range) or per-row [B] (the sliced decode loop: each row
+    commits its own cursor block). Unmapped or out-of-range entries come
+    back negative; callers clamp (gather) or drop (scatter)."""
+    ar = torch.arange(S, dtype=torch.int32, device=page_table.device)
+    per_row = isinstance(start, torch.Tensor) and start.ndim == 1
+    if per_row:
+        slots = start.to(page_table.device, torch.int32)[:, None] + ar
+    else:
+        slots = int(start) + ar
     lp = torch.div(slots, page_size, rounding_mode="floor")
     off = slots % page_size
     n_log = page_table.shape[1]
     in_range = (lp >= 0) & (lp < n_log)
-    pp = page_table[:, lp.clamp(0, n_log - 1).long()]
+    lp_safe = lp.clamp(0, n_log - 1).long()
+    if per_row:
+        pp = torch.gather(page_table, 1, lp_safe)
+        return torch.where(in_range, pp, -1), off
+    pp = page_table[:, lp_safe]
     return torch.where(in_range[None], pp, -1), off
 
 
@@ -149,28 +201,39 @@ def paged_kv_gather(pool_k: torch.Tensor, pool_v: torch.Tensor,
     return pool_k[pp, off], pool_v[pp, off], mapped
 
 
-def paged_write_index(page_table: torch.Tensor, start: int, S: int,
-                      page_size: int) -> Tuple[torch.Tensor, ...]:
-    """The mapped entries of a write of S slots at logical ``start``:
-    (row, chunk position, physical page, in-page offset), one long tensor
-    each. torch has no dropping scatter and a clamped index would write
-    page 0, so unmapped entries are filtered out here; the filter reads
-    the mask on the host (one sync). The index depends only on the page
-    table and the slot range, so a block step builds it once for all its
-    layers."""
+def paged_write_index(page_table: torch.Tensor, start, S: int,
+                      page_size: int, limit: Optional[int] = None
+                      ) -> Tuple[torch.Tensor, ...]:
+    """The mapped entries of a write of S slots at logical ``start`` (an
+    int, or per-row [B]): (row, chunk position, physical page, in-page
+    offset), one long tensor each. torch has no dropping scatter and a
+    clamped index would write page 0, so unmapped entries, and with
+    ``limit`` every slot at or past it (a per-row start ``>= T`` is the
+    sliced loop's write-gating sentinel), are filtered out here; the
+    filter reads the mask on the host (one sync). The index depends only
+    on the page table and the slot range, so a block step builds it once
+    for all its layers."""
     pp, off = _page_index(page_table, start, S, page_size)
-    b, s = torch.nonzero(pp >= 0, as_tuple=True)
-    return b, s, pp[b, s].long(), off[s].long()
+    keep = pp >= 0
+    if limit is not None:
+        ar = torch.arange(S, device=pp.device)
+        slots = (start.to(pp.device)[:, None] if isinstance(
+            start, torch.Tensor) and start.ndim == 1 else int(start)) + ar
+        keep &= slots < limit
+    b, s = torch.nonzero(keep, as_tuple=True)
+    off = off[b, s] if off.ndim == 2 else off[s]
+    return b, s, pp[b, s].long(), off.long()
 
 
 def paged_kv_write(pool_k: torch.Tensor, pool_v: torch.Tensor,
                    k_new: torch.Tensor, v_new: torch.Tensor,
-                   page_table: torch.Tensor, start: int, *, page_size: int,
+                   page_table: torch.Tensor, start, *, page_size: int,
                    index=None):
-    """Scatter a [B, S, Kh, D] chunk at logical slot ``start`` through the
-    page table into one layer's pools [P, ps, Kh, D], in place. Writes
-    through unmapped entries are dropped. Rows must not share the pages
-    they write. ``index`` is a prebuilt :func:`paged_write_index`."""
+    """Scatter a [B, S, Kh, D] chunk at logical slot ``start`` (an int, or
+    per-row [B]) through the page table into one layer's pools [P, ps,
+    Kh, D], in place. Writes through unmapped entries are dropped. Rows
+    must not share the pages they write. ``index`` is a prebuilt
+    :func:`paged_write_index`."""
     b, s, pp, off = index if index is not None else paged_write_index(
         page_table, start, k_new.shape[1], page_size)
     pool_k[pp, off] = k_new[b, s].to(pool_k.dtype)

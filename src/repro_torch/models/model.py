@@ -27,7 +27,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models import cache as cache_lib
 from repro_torch.models.attention import (attention, cached_block_attend,
-                                          paged_cached_block_attend)
+                                          is_row, paged_cached_block_attend)
 from repro_torch.models.layers import (apply_rope, dense_init, embed,
                                        init_embedding, mlp, project,
                                        rms_norm, unembed)
@@ -263,21 +263,26 @@ def _store_prefill_kv(kv_cache: dict, ks: torch.Tensor, vs: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def block_step(params: dict, cfg: ModelConfig, block_tokens: torch.Tensor,
-               block_start: int, cache: dict, *, write: bool = False,
-               advance: bool = True, exclude_start: Optional[int] = None,
-               exclude_len: int = 0, write_slot: Optional[int] = None,
+               block_start, cache: dict, *, write: bool = False,
+               advance: bool = True, exclude_start=None,
+               exclude_len: int = 0, write_slot=None,
                window: int = 0, attn_impl: str = "auto",
                page_size: int = 0, row_live: Optional[torch.Tensor] = None,
+               row_limit: Optional[torch.Tensor] = None,
                head: bool = True) -> Tuple[torch.Tensor, dict]:
     """One denoising forward of the active block against the cache.
 
     block_tokens [B, bs] (masked positions hold the mask id); block_start
-    is the absolute position of the block's first token. ``write=True``
-    commits this forward's K/V at slot ``write_slot`` (default: the cache
-    length), IN PLACE in the cache's tensors; ``advance=False`` keeps the
-    length (the dual-cache refresh). ``exclude_start/len`` masks a slot
-    range from attention (dual-cache steps exclude their own stale slots).
-    ``head=False`` returns the final-norm'd hidden for the fused epilogue.
+    is the absolute position of the block's first token: an int, or
+    PER-ROW [B] (the step-sliced decode loop: each row denoises its own
+    cursor block; ``write_slot`` and ``exclude_start`` may then be [B]
+    too, and a write slot ``>= T`` gates that row's commit off).
+    ``write=True`` commits this forward's K/V at slot ``write_slot``
+    (default: the cache length), IN PLACE in the cache's tensors;
+    ``advance=False`` keeps the length (the dual-cache refresh).
+    ``exclude_start/len`` masks a slot range from attention (dual-cache
+    steps exclude their own stale slots). ``head=False`` returns the
+    final-norm'd hidden for the fused epilogue.
 
     ``attn_impl``: auto / dense / flash are the plain paths (write the
     block into a copy of each layer's cache, mask, attend; "flash" stops
@@ -295,41 +300,78 @@ def block_step(params: dict, cfg: ModelConfig, block_tokens: torch.Tensor,
     gives rows marked dead a ``kv_limit`` of 0: they attend only their
     fresh block and the kernel reads none of their pages; live rows keep
     the shared valid extent, so an all-live mask changes nothing.
+
+    ``row_limit`` [B] int32 (either layout) is the explicit per-row form:
+    row ``b`` attends cache slots ``< row_limit[b]`` only (its own fresh
+    block stays visible). The sliced decode loop passes each row's
+    committed extent, so a slot admitted afresh cannot see its previous
+    occupant's stale tail. It excludes ``row_live``.
     """
     assert cfg.supports_mdlm, f"{cfg.name} is causal-only"
+    if row_live is not None and row_limit is not None:
+        raise ValueError("pass row_live or the explicit row_limit, not both")
     x = embed(params["embed"], block_tokens)
     B, bs, _ = x.shape
+    dev = x.device
     kv = cache["attn"]
     paged = "kp" in kv
+    T = kv["pos"].shape[0]
     if paged:
         if window:
             raise ValueError("a paged cache has no window")
         page_size = _pool_page_size(kv, page_size)
-    block_start = int(block_start)
-    q_pos = block_start + torch.arange(bs, dtype=torch.int32, device=x.device)
-    slot = kv["length"] if write_slot is None else int(write_slot)
+    ar = torch.arange(bs, dtype=torch.int32, device=dev)
+    if is_row(block_start):
+        block_start = block_start.to(dev, torch.int32)
+        q_pos = block_start[:, None] + ar                    # [B, bs]
+    else:
+        block_start = int(block_start)
+        q_pos = block_start + ar
+    if write_slot is None:
+        slot = kv["length"]
+    elif is_row(write_slot):
+        slot = write_slot.to(dev, torch.int32)
+    else:
+        slot = int(write_slot)
+    if is_row(exclude_start):
+        exclude_start = exclude_start.to(dev, torch.int32)
+    per_row = is_row(slot) or q_pos.ndim == 2
     use_kernel = attn_impl == "kernel"
     kv_limit = None
     if attn_impl in ("kernel", "flash"):
         # valid cache extent, shared across layers (one [T] reduction)
         kv_limit = kops.kv_limit_from_pos(kv["pos"])
-    row_limit = None
     if paged and row_live is not None:
         # per-row extent: retired rows stop reading their mapped pages
         shared = kops.kv_limit_from_pos(kv["pos"]) if kv_limit is None \
             else kv_limit
-        row_limit = torch.where(torch.as_tensor(row_live, device=x.device)
+        row_limit = torch.where(torch.as_tensor(row_live, device=dev)
                                 .bool(), shared, 0).to(torch.int32)
+    elif row_limit is not None:
+        row_limit = row_limit.to(dev, torch.int32)
+    dense_row_valid = None
+    if row_limit is not None and not paged:
+        if attn_impl in ("kernel", "flash"):
+            # rank-1 kv_limit: the kernel takes it per row, the flash
+            # path masks per row and bounds its scan at the batch max
+            kv_limit = row_limit
+        else:
+            ids = torch.arange(T, dtype=torch.int32, device=dev)
+            dense_row_valid = ids[None] < row_limit[:, None]
     if use_kernel:
         # the kernel's per-row geometry, shared across layers (one copy)
         exc_len = exclude_len if exclude_start is not None else 0
         scalars = kops.row_scalars(
-            B, x.device, slot=slot, block_start=block_start,
+            B, dev, slot=slot, block_start=block_start,
             kv_limit=kv_limit if row_limit is None else row_limit,
             exclude_start=exclude_start, exclude_len=exc_len)
-    if paged and write:
-        # the mapped write entries, shared across layers (one host sync)
-        widx = cache_lib.paged_write_index(kv["pt"], slot, bs, page_size)
+    if write:
+        # the write entries, shared across layers (one host sync)
+        if paged:
+            widx = cache_lib.paged_write_index(kv["pt"], slot, bs,
+                                               page_size, limit=T)
+        elif is_row(slot):
+            widx = cache_lib.rows_write_index(slot, bs, T)
     ck_all, cv_all = (kv["kp"], kv["vp"]) if paged else (kv["k"], kv["v"])
 
     for l in range(cfg.num_layers):
@@ -355,13 +397,17 @@ def block_step(params: dict, cfg: ModelConfig, block_tokens: torch.Tensor,
             attn = kops.cached_block_attention_kernel(
                 q, ck, cv, k, v, kv["pos"], scalars, exclude_len=exc_len,
                 window=window)
-            if write:
+            if write and is_row(slot):
+                cache_lib.kv_write_slice_rows(ck, cv, k, v, slot,
+                                              index=widx)
+            elif write:
                 cache_lib.kv_write_slice(ck, cv, k, v, slot)
         else:
             attn, (ck_w, cv_w) = cached_block_attend(
                 q, ck, cv, k, v, kv["pos"], slot=slot, q_pos=q_pos,
                 kv_limit=kv_limit, exclude_start=exclude_start,
-                exclude_len=exclude_len, window=window, impl=attn_impl)
+                exclude_len=exclude_len, window=window, impl=attn_impl,
+                row_valid=dense_row_valid)
             if write:
                 ck.copy_(ck_w)
                 cv.copy_(cv_w)
@@ -370,7 +416,15 @@ def block_step(params: dict, cfg: ModelConfig, block_tokens: torch.Tensor,
 
     out = _head(params, cfg, x) if head else _pre_head(params, cfg, x)
     if write:
-        cache_lib.pos_write_slice(kv["pos"], q_pos, slot)
+        if per_row:
+            q2 = q_pos if q_pos.ndim == 2 else q_pos[None].expand(B, bs)
+            slot_r = slot if is_row(slot) else torch.full(
+                (B,), slot, dtype=torch.int32, device=dev)
+            cache_lib.pos_write_slice_rows(
+                kv["pos"], q2, slot_r,
+                index=widx if not paged and is_row(slot) else None)
+        else:
+            cache_lib.pos_write_slice(kv["pos"], q_pos, slot)
         kv = dict(kv, length=kv["length"] + bs if advance else kv["length"])
         cache = dict(cache, attn=kv)
     return out, cache

@@ -17,12 +17,19 @@ the decode wall it was decoded in. Under the paged KV layout the stats
 also report page-pool occupancy: ``page_capacity``, ``pages_peak`` /
 ``page_util``, ``pages_shared``, ``pages_freed``.
 
+With ``EngineConfig.slice_len >= 1`` the scheduler runs the STEP-SLICED
+decode loop (SERVING.md "Async admission"): requests are admitted into
+freed slots mid-generation, EOS retirement gives pages back at slice
+boundaries, and the latency split is slice-granular: ``Response.ttfb_s``
+(submit to the first decoded block) plus ``queue_s``/``decode_s``
+measured at the boundaries the row crossed.
+
 The engine runs on the device that holds ``params``: the port's entry
 points that make params (``model.init_params``, ``convert.
 load_checkpoint``, ``convert.params_from_numpy``) put them on CUDA unless
-the caller asks for the CPU. Step-sliced decode, drafting, the radix
-prefix cache and mesh sharding are not ported and raise
-``NotImplementedError``; ``DiffusionEngine.mesh`` is always ``None``.
+the caller asks for the CPU. Drafting, the radix prefix cache and mesh
+sharding are not ported and raise ``NotImplementedError``;
+``DiffusionEngine.mesh`` is always ``None``.
 """
 from __future__ import annotations
 

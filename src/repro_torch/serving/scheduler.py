@@ -1,7 +1,7 @@
-"""Slot-based batching scheduler for diffusion decoding: the batch-boundary
-path of the reference's ``serving/scheduler.py``.
+"""Slot-based batching scheduler for diffusion decoding: the port of the
+reference's ``serving/scheduler.py``, batch-boundary and step-sliced.
 
-The generate function is built ONCE per engine for fixed ``[batch_size,
+The decode functions are built ONCE per engine for fixed ``[batch_size,
 prompt_len]`` batches; everything that varies per request rides as a
 runtime argument: the per-slot threshold table ``[B, nb, steps_cap]``
 gathered from the :class:`~repro_torch.core.osdt.CalibrationStore`, the
@@ -16,6 +16,22 @@ Lifecycle (SERVING.md):
                      prompt rows with ``live=False`` that cost no
                      denoising steps of their own.
 
+Two runtimes:
+
+* ``slice_len == 0`` (``step``): admit up to ``batch_size`` requests,
+  decode the batch to its end with the monolithic generate, retire every
+  slot.
+* ``slice_len >= 1`` (``slice_step``, SERVING.md "Async admission"): the
+  decode state lives in a :class:`~repro_torch.core.decoder.DecodeCarry`
+  across calls of the slice function, ``slice_len`` blocks each. At
+  every slice boundary finished rows (cursor past the last block, or EOS)
+  retire and give their pages back at once, and queued requests are
+  admitted into the freed slots while the other rows are mid-decode,
+  each with its own block cursor and one batched admission prefill. The
+  latency split is slice-granular: ``Response.ttfb_s`` (submit to the
+  first decoded block) and ``decode_s`` over the slices the row was
+  live in.
+
 The decoder records the confidence profile of EVERY live row, so each
 *uncalibrated* task's first admitted request, whatever slot it lands in,
 becomes that task's one-shot calibration (paper Algorithm 1), and several
@@ -28,18 +44,17 @@ PageAllocator`. Admission forks each request off the shared system-prompt
 pages (``PageAllocator.fork``: the shared pages mapped read-only, private
 pages for the logical range the row writes), retirement releases the
 fork, and a request is admissible as soon as enough *pages* are free.
-Dead slots map no pages. ``EngineConfig.shared_prefix`` is prefilled ONCE
-into those shared pages at construction. The generate writes the pool in
-place and only reads pages below the shared length; pages that a later
-batch reuses keep earlier rows' K/V, which each call's own positions and
-length keep out of sight.
+Dead and free slots map no pages. ``EngineConfig.shared_prefix`` is
+prefilled ONCE into those shared pages at construction. The decode
+writes the pool in place and only reads pages below the shared length;
+pages that a later row reuses keep earlier rows' K/V, which each row's
+own positions and extent keep out of sight.
 
 Not ported yet, and raising ``NotImplementedError`` at construction:
-step-sliced decode (``slice_len >= 1``), speculative drafting
-(``spec_decode``, or ``draft_max_steps`` other than 1), the radix prefix
-cache (``prefix_cache``, or a non-zero ``prefix_cache_pages`` or
-``prefix_cache_watermark``) and mesh sharding (``data_parallel`` or
-``model_parallel`` > 1).
+speculative drafting (``spec_decode``, or ``draft_max_steps`` other than
+1), the radix prefix cache (``prefix_cache``, or a non-zero
+``prefix_cache_pages`` or ``prefix_cache_watermark``) and mesh sharding
+(``data_parallel`` or ``model_parallel`` > 1).
 """
 from __future__ import annotations
 
@@ -54,7 +69,10 @@ import torch
 
 from repro_torch.config.base import DecodeConfig, EngineConfig, ModelConfig
 from repro_torch.core.calibrate import CalibrationProfile
-from repro_torch.core.decoder import make_generate_fn, result_profile
+from repro_torch.core.decoder import (admit_carry_rows, init_decode_carry,
+                                      make_admit_fn, make_generate_fn,
+                                      make_slice_fn, result_profile,
+                                      retire_carry_rows)
 from repro_torch.core.osdt import CalibrationStore
 from repro_torch.data import tokenizer as tok
 from repro_torch.models import cache as cache_lib
@@ -113,17 +131,28 @@ class RequestState:
 class Slot:
     """One row of the decode batch. ``state``: free | active | dead.
     ``pages``: private pool pages this slot's request owns (paged layout),
-    freed, with the shared-prefix reference, at retirement."""
+    freed, with the shared-prefix reference, at retirement. Sliced decode
+    also accumulates the slot's own latency split (``decode_s`` over the
+    slices it was live in, ``ttfb_s`` at its first slice boundary past
+    block 0) and remembers which task it is calibrating, if any."""
     index: int
     state: str = "free"
     rs: Optional[RequestState] = None
     pages: Optional[List[int]] = None
+    decode_s: float = 0.0
+    ttfb_s: float = 0.0
+    calib_task: str = ""
+    was_mid: bool = False  # admitted while the batch was mid-generation
 
     def admit(self, rs: Optional[RequestState],
               pages: Optional[List[int]] = None) -> None:
         self.rs = rs
         self.pages = pages
         self.state = "active" if rs is not None else "dead"
+        self.decode_s = 0.0
+        self.ttfb_s = 0.0
+        self.calib_task = ""
+        self.was_mid = False
         if rs is not None:
             rs.slot = self.index
 
@@ -131,6 +160,7 @@ class Slot:
         self.rs = None
         self.pages = None
         self.state = "free"
+        self.calib_task = ""
 
 
 # EngineStats field spec: name -> (python type, help text), the
@@ -249,9 +279,7 @@ def check_ported(ecfg: EngineConfig) -> None:
     """Raise for the reference's serving features the port lacks, and for
     any non-default setting of their knobs, so none is taken and
     ignored."""
-    for on, what in ((ecfg.slice_len >= 1, "step-sliced decode "
-                      "(slice_len >= 1) is ROADMAP Queue 1 item 2"),
-                     (ecfg.spec_decode or ecfg.draft_max_steps != 1,
+    for on, what in ((ecfg.spec_decode or ecfg.draft_max_steps != 1,
                       "speculative drafting (spec_decode, draft_max_steps) "
                       "is ROADMAP Queue 1 item 4"),
                      (ecfg.prefix_cache or ecfg.prefix_cache_pages != 0
@@ -267,12 +295,15 @@ def check_ported(ecfg: EngineConfig) -> None:
 
 
 class Scheduler:
-    """Request queue + slot pool + one generate function.
+    """Request queue + slot pool + the decode functions.
 
     ``step()`` admits up to ``batch_size`` queued requests into slots,
-    decodes one batch, retires every slot, and returns the responses.
-    ``run()`` drains the queue. Unfilled slots are admitted DEAD. The
-    batch runs on the device that holds ``params``.
+    decodes one batch, retires every slot, and returns the responses;
+    unfilled slots are admitted DEAD. With ``EngineConfig.slice_len >=
+    1``, ``slice_step()`` runs one slice boundary instead (admit into free
+    slots, one slice, retire finished rows). ``run()`` drains the queue
+    through whichever runtime the config picks. Everything runs on the
+    device that holds ``params``.
     """
 
     def __init__(self, params, cfg: ModelConfig, dcfg: DecodeConfig, *,
@@ -344,12 +375,29 @@ class Scheduler:
         if self.weight_dtype != "bf16":
             fusion += f"-{self.weight_dtype}"
         self._prog_kind = "/".join((
-            "paged" if self.paged else "dense", "batch", fusion))
+            "paged" if self.paged else "dense",
+            "sliced" if self.ecfg.slice_len else "batch", fusion))
         self._gen = make_generate_fn(
             cfg, dcfg, cache_mode=mode, attn_impl=self.ecfg.attn_impl,
             cache_layout="paged" if self.paged else "dense",
             shared_prefix_len=self.shared_len if self.paged else 0,
             weight_dtype=self.weight_dtype)
+
+        # step-sliced decode loop (SERVING.md "Async admission")
+        self.slice_len = int(self.ecfg.slice_len)
+        self._carry = None
+        self._nfe_seen = 0
+        self._calibrating: Dict[str, int] = {}  # task -> calibration slot
+        if self.slice_len:
+            kw = dict(cache_mode=mode, attn_impl=self.ecfg.attn_impl,
+                      cache_layout="paged" if self.paged else "dense",
+                      shared_prefix_len=self.shared_len if self.paged
+                      else 0)
+            self._slice_fn = make_slice_fn(
+                cfg, dcfg, slice_len=self.slice_len,
+                weight_dtype=self.weight_dtype, **kw)
+            self._admit_fn = make_admit_fn(cfg, dcfg, **kw) \
+                if mode != "none" else None
 
     def _count_nfe(self, n: int) -> None:
         """Every counted forward streams the decode weight set once."""
@@ -617,6 +665,256 @@ class Scheduler:
                 slot.retire()
         return out
 
+    # -- step-sliced decode (SERVING.md "Async admission") --------------
+    def _start_carry(self) -> None:
+        """Build a fresh all-free carry. Paged: the carry holds the
+        scheduler's own pool tensors, which its functions write in
+        place."""
+        B, P = self.ecfg.batch_size, self.ecfg.prompt_len
+        kw = {}
+        if self.paged:
+            kw = dict(pool_k=self._pool_k, pool_v=self._pool_v,
+                      page_table=np.full((B, self.n_log), -1, np.int32))
+        self._carry = init_decode_carry(
+            self.cfg, self.dcfg, batch=B, prompt_len=P,
+            mask_id=self.mask_id,
+            cache_mode=self.ecfg.resolved_cache_mode(),
+            cache_layout="paged" if self.paged else "dense",
+            shared_prefix_len=self.shared_len if self.paged else 0,
+            device=self.params["embed"].device, **kw)
+        self._nfe_seen = 0
+
+    def _teardown_carry(self) -> None:
+        self._carry = None
+
+    def _admit_sliced(self) -> List[Slot]:
+        """Pop admissible requests into free slots (FIFO; paged admission
+        gates on free pages), update the carry's rows, and run the one
+        batched admission prefill. Returns the slots admitted at this
+        boundary."""
+        free = [s for s in self.slots if s.state == "free"]
+        admitted: List[Slot] = []
+        now = time.perf_counter()
+        mid_gen = self._carry is not None and \
+            any(s.state == "active" for s in self.slots)
+        tr = self.obs.tracer
+        for slot in free:
+            if not self.queue:
+                break
+            if self.paged and \
+                    self.allocator.available < self.private_per_slot:
+                continue
+            pages = None
+            if self.paged:
+                _, pages = self.allocator.fork(self._shared_pages,
+                                               self.private_per_slot)
+            rs = self.queue.popleft()
+            rs.t_admit = now
+            slot.admit(rs, pages)
+            slot.was_mid = mid_gen
+            # counted with the slot, so a failure anywhere later in the
+            # boundary backs out exactly what was counted
+            self.stats.requests += 1
+            if mid_gen:
+                self.stats.mid_admits += 1
+            t = rs.req.task
+            self.seen_tasks[t] = self.seen_tasks.get(t, 0) + 1
+            if not self.store.calibrated(t) and t not in self._calibrating:
+                self._calibrating[t] = slot.index
+                slot.calib_task = t
+            if tr:
+                tr.aend("queued", rs.req.uid, t=now)
+                tr.begin("serve", tid=self.obs.slot_track(slot.index),
+                         t=now, uid=rs.req.uid, task=t, mid=mid_gen,
+                         prefix_len=0)
+            admitted.append(slot)
+        if not admitted:
+            return admitted
+        if self._carry is None:
+            self._start_carry()
+        rows = [s.index for s in admitted]
+        prompts = np.asarray([self._prompt_row(s.rs) for s in admitted],
+                             np.int32)
+        tables = self.store.tables_for([s.rs.req.task for s in admitted])
+        page_rows = None
+        if self.paged:
+            page_rows = np.full((len(admitted), self.n_log), -1, np.int32)
+            n_shared = self.shared_len // self.dcfg.page_size
+            for i, s in enumerate(admitted):
+                page_rows[i, :n_shared] = self._shared_pages
+                page_rows[i, n_shared:] = s.pages
+            self.stats.pages_peak = max(self.stats.pages_peak,
+                                        self.allocator.in_use)
+        self._carry = admit_carry_rows(self._carry, rows, prompts,
+                                       np.asarray(tables), self.mask_id,
+                                       page_rows=page_rows)
+        if self._admit_fn is not None:
+            admit_mask = np.zeros((self.ecfg.batch_size,), bool)
+            admit_mask[rows] = True
+            if tr:
+                tr.begin("admit_prefill", tid=0, rows=len(admitted))
+            try:
+                self._carry = self._admit_fn(self.params, self._carry,
+                                             admit_mask)
+            finally:
+                if tr:
+                    tr.end("admit_prefill", tid=0)
+            self.stats.prefill_nfe += 1
+        return admitted
+
+    def _retire_sliced(self) -> List[Response]:
+        """Emit responses for rows whose cursor ran out or that
+        EOS-retired, give their pages back at once (the next
+        ``_admit_sliced`` can hand them out), and ingest any finished
+        calibration row."""
+        carry = self._carry
+        cursor = carry.cursor.cpu().numpy()
+        live = carry.live.cpu().numpy()
+        nb = self.dcfg.num_blocks
+        done = [s for s in self.slots if s.state == "active"
+                and (cursor[s.index] >= nb or not live[s.index])]
+        if not done:
+            return []
+        tokens = carry.resp.cpu().numpy()
+        seq_steps = carry.seq_steps.cpu().numpy()
+        res = carry.result()
+        tr = self.obs.tracer
+        drift = self.obs.drift
+        if drift is not None:
+            # one batch conversion, not one per retiring row
+            thr = carry.thr_steps.cpu().numpy()
+            msum = carry.margin_sum.cpu().numpy()
+            mn = carry.margin_n.cpu().numpy()
+            conf_rec = res.conf.cpu().numpy()
+            val_rec = res.conf_valid.cpu().numpy()
+        out: List[Response] = []
+        for slot in done:
+            j, rs = slot.index, slot.rs
+            if slot.calib_task:
+                self.store.ingest(slot.calib_task,
+                                  result_profile(res, row=j))
+                self._calibrating.pop(slot.calib_task, None)
+                if self.ecfg.store_path:
+                    self.store.save(self.ecfg.store_path)
+            row = tokens[j].tolist()
+            if self.eos_id in row:
+                row = row[:row.index(self.eos_id)]
+            row = [t for t in row if t != self.mask_id]
+            queue_s = rs.t_admit - rs.t_submit
+            steps = int(seq_steps[j].sum())
+            out.append(Response(
+                rs.req.uid, rs.req.task, tok.decode(row),
+                nfe=steps, wall_s=queue_s + slot.decode_s,
+                queue_s=queue_s, decode_s=slot.decode_s,
+                tokens_out=len(row),
+                tokens_dropped=tokens.shape[1] - len(row),
+                ttfb_s=slot.ttfb_s))
+            self.stats.tokens += len(row)
+            self.stats.tokens_dropped += tokens.shape[1] - len(row)
+            self.stats.queue_s += queue_s
+            self.stats.ttfb_s += slot.ttfb_s
+            self.stats.seq_steps += steps
+            self._h_queue.observe(queue_s)
+            if drift is not None:
+                drift.observe(rs.req.task,
+                              CalibrationProfile(conf=conf_rec[j],
+                                                 valid=val_rec[j],
+                                                 steps=seq_steps[j]),
+                              thr_steps=thr[j], seq_steps=seq_steps[j],
+                              margin_sum=msum[j], margin_n=mn[j])
+            if tr:
+                tr.end("serve", tid=self.obs.slot_track(j),
+                       tokens=len(row), nfe=steps)
+                tr.aend("request", rs.req.uid)
+            if self.paged and slot.pages is not None:
+                self.allocator.free(slot.pages)
+                self.allocator.free(self._shared_pages)
+                self.stats.pages_freed += len(slot.pages)
+            slot.retire()
+        # unmap the retired rows before the next admission can receive
+        # their pages
+        self._carry = retire_carry_rows(carry, [s.index for s in done], nb)
+        return out
+
+    def slice_step(self) -> List[Response]:
+        """One slice boundary: admit into free slots, run ONE
+        ``slice_len``-block slice, retire finished rows, and return their
+        responses. A no-op (returning ``[]``) when nothing is queued or
+        active."""
+        assert self.slice_len, "slice_step() needs EngineConfig.slice_len"
+        tr = self.obs.tracer
+        slice_open = False
+        try:
+            # inside the guard: a failed admission prefill leaves the
+            # admitted rows without a cache, so it is handled as a failed
+            # slice
+            self._admit_sliced()
+            active = [s for s in self.slots if s.state == "active"]
+            if not active:
+                self._teardown_carry()
+                return []
+            t0 = time.perf_counter()
+            if tr:
+                tr.begin("slice", tid=0, t=t0, rows_live=len(active),
+                         pages_in_use=self.allocator.in_use
+                         if self.paged else 0, draft_blocks=0)
+                slice_open = True
+            self._carry = self._slice_fn(
+                self.params, self._carry, self.mask_id,
+                self.eos_id if self.ecfg.eos_early_exit else None)
+            cursor = self._carry.cursor.cpu().numpy()  # waits for the device
+            t_end = time.perf_counter()
+        except BaseException:
+            # a failed admission or slice must not swallow in-flight
+            # requests or leak their pages: requeue FIFO (by submit time)
+            # and reclaim. The retried admission re-counts the request and
+            # may re-claim its calibration row, so back out both here.
+            if tr:
+                tr.instant("slice_failed", tid=0)
+                if slice_open:
+                    tr.end("slice", tid=0, error=True)
+            active = [s for s in self.slots if s.state == "active"]
+            for slot in sorted(active, key=lambda s: s.rs.t_submit,
+                               reverse=True):
+                if tr:
+                    tr.end("serve", tid=self.obs.slot_track(slot.index),
+                           requeued=True)
+                    tr.abegin("queued", slot.rs.req.uid)
+                self.queue.appendleft(slot.rs)
+                self.stats.requests -= 1
+                if slot.was_mid:
+                    self.stats.mid_admits -= 1
+                if slot.calib_task:
+                    self._calibrating.pop(slot.calib_task, None)
+                if self.paged and slot.pages is not None:
+                    self.allocator.free(slot.pages)
+                    self.allocator.free(self._shared_pages)
+                slot.retire()
+            self._teardown_carry()
+            raise
+        wall = t_end - t0
+        self.stats.wall_s += wall
+        self.stats.slices += 1
+        nfe_now = self._carry.nfe
+        nfe_delta = nfe_now - self._nfe_seen
+        self._count_nfe(nfe_delta)
+        self._nfe_seen = nfe_now
+        self.obs.timer.add(self._prog_kind, wall, nfe_delta)
+        self._h_dispatch.observe(wall, kind="slice")
+        if tr:
+            tr.end("slice", tid=0, t=t_end, nfe=nfe_delta)
+            if self.paged:
+                tr.counter("pages_in_use", self.allocator.in_use, t=t_end)
+        for slot in active:
+            slot.decode_s += wall
+            if not slot.ttfb_s and cursor[slot.index] > 0:
+                slot.ttfb_s = t_end - slot.rs.t_submit
+        out = self._retire_sliced()
+        if not self.queue and \
+                not any(s.state == "active" for s in self.slots):
+            self._teardown_carry()
+        return out
+
     # -- prompt rows ----------------------------------------------------
     def _prompt_row(self, rs: RequestState) -> List[int]:
         P = self.ecfg.prompt_len
@@ -665,6 +963,15 @@ class Scheduler:
 
     def run(self) -> List[Response]:
         out: List[Response] = []
+        if self.slice_len:
+            while self.queue or \
+                    any(s.state == "active" for s in self.slots):
+                got = self.slice_step()
+                out.extend(got)
+                if not got and not any(s.state == "active"
+                                       for s in self.slots):
+                    break  # nothing admissible (pool too small)
+            return out
         while self.queue:
             got = self.step()
             if not got:  # nothing admissible (should not happen)

@@ -61,7 +61,7 @@ def test_serve_prints_the_reference_lines(ckpt, extra, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--slice-len", "1"], "item 2"), (["--spec-decode"], "item 4"),
+    (["--spec-decode"], "item 4"),
     (["--draft-max-steps", "2"], "item 4"), (["--prefix-cache"], "item 5"),
     (["--prefix-cache-pages", "64"], "item 5"),
     (["--prefix-cache-watermark", "0.1"], "item 5"),

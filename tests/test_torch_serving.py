@@ -288,7 +288,7 @@ def test_store_path_persists_across_packages(models, tmp_path):
 
 
 @pytest.mark.parametrize("knob,item", [
-    (dict(slice_len=1), "item 2"), (dict(spec_decode=True), "item 4"),
+    (dict(spec_decode=True), "item 4"),
     (dict(draft_max_steps=2), "item 4"), (dict(prefix_cache=True), "item 5"),
     (dict(prefix_cache_pages=64), "item 5"),
     (dict(prefix_cache_watermark=0.1), "item 5"),
